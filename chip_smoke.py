@@ -3,15 +3,24 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, in this order, one JSON line each:
   device     nvidia-smi card line, torch / CUDA versions
   build      compile the hand-written CUDA kernels (csrc/*.cu), seconds
   kernel     each kernel against its plain PyTorch version at main-path
-             shapes (inputs from a rendered 192x256 clutter frame):
-             max abs/rel error, kernel / plain time, bound
+             shapes (inputs from a rendered 192x256 clutter frame): max
+             abs/rel error, kernel / plain time, bound.  One line for the
+             sampler downdate (64 x 49,152) and one per shape class of the
+             cross-covariance (49,152 x 64, 64 x 64, 1 x 64), each with a
+             bitwise-repeat check
+  plane      ComoSeq on the 25-frame plane sequence at 192x256 with
+             configs/como.yml: the accuracy guard (ATE < PLANE_ATE_GUARD_M)
   main_path  ComoSeq on 120 clutter frames at 192x256 with configs/como.yml:
              frames, KF/OW counts, ATE, FPS, latencies, kernel launches
+             (the cross-covariance's also by shape)
+  layers     one GN iteration and one frame's tracking on the final window
+  profile    device time by kernel over a few more frames, idle share
   determinism two GN steps on the final full-size window: bitwise equal
+  total      seconds the script took
 Then the kernel table line {"kernels": [...]}, the nvidia-smi card line,
 and last {"ok": true, "device": {...}}.  Any failed check raises and the
 script exits non-zero; without a CUDA device, or without the repository
@@ -34,6 +43,10 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM f32, non-tensor-core
 CROSS_COV_OPS = 36           # f32 operations per (n, m) element (special functions = 1)
 TOL_ABS, TOL_REL = 1e-5, 1e-4
 N_TIMED = 30
+# Accuracy guard of the `plane` phase: the JAX package's own bound for this
+# sequence (tests/test_e2e_seq.py).  Three runs on an H100 (the kernels, their
+# plain versions, scene seed 1) all gave less than half of it (PERF.md).
+PLANE_ATE_GUARD_M = 0.02
 
 
 def emit(phase: str, **kw):
@@ -96,7 +109,18 @@ def errors(got, want):
     return float(d.max()), float(rel[want.abs() > 1e-6].max()) if (want.abs() > 1e-6).any() else 0.0, ok
 
 
+def ate_m(eng, ds) -> float:
+    """Scale-aligned ATE of an engine's poses against the dataset's."""
+    import torch
+
+    from como_tpu_torch.utils.io import ate_rmse
+
+    idx = (torch.tensor(eng.timestamps) * ds.fps).round().long().numpy()
+    return ate_rmse(eng.poses_numpy(), ds.poses[idx], with_scale=True)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not (HERE / "como_tpu_torch").is_dir() or not (HERE / "configs" / "como.yml").is_file():
         print("chip_smoke.py: the como_tpu_torch package and configs/ must sit beside "
               "this script", file=sys.stderr)
@@ -131,7 +155,6 @@ def main() -> int:
     from como_tpu_torch.odom.backend.gn_step import _gn_step_impl
     from como_tpu_torch.odom.tracking import track_frame
     from como_tpu_torch.runtime.seq import ComoSeq
-    from como_tpu_torch.utils.io import ate_rmse
 
     cfg = load_config(str(HERE / "configs" / "como.yml"))
     H, W = cfg.img_size
@@ -140,7 +163,7 @@ def main() -> int:
     frames = [ds[i] for i in range(len(ds))]
     torch.cuda.synchronize()
 
-    # ---- 3. kernels against their plain versions ---------------------------
+    # ---- 3. kernel: each kernel against its plain version -------------------
     scfg = cfg.mapping.sampling
     cov_img = DepthCovPrior().cov_params(frames[0][1])
     dom, e_dom, dom_valid, _ = sampler.full_image_domain(cov_img, scfg.border)
@@ -187,25 +210,66 @@ def main() -> int:
     if not (dd_ok and same_inds):
         raise SystemExit("sampler downdate kernel disagrees with its plain version")
 
-    # cross-covariance at N = H*W sites x the M = 64 anchors just sampled
+    # cross-covariance at its three main-path shape classes: all H*W sites x
+    # the M = 64 anchors just sampled (keyframe insertion), M x M (K_mm) and
+    # 1 x M (once per sampler iteration)
     x_m, e_m = res_k.coords_norm.contiguous(), res_k.covs.contiguous()
     M = x_m.shape[0]
-    got = kernels_cuda.cross_covariance(dom, e_dom, x_m, e_m, 1.0)
-    want = kernels_cuda.cross_covariance_plain(dom, e_dom, x_m, e_m, 1.0)
-    cc_abs, cc_rel, cc_ok = errors(got, want)
-    cc_ms, _ = device_ms(lambda: kernels_cuda.cross_covariance(dom, e_dom, x_m, e_m, 1.0))
-    cc_plain_ms, cc_plain_k = device_ms(
-        lambda: kernels_cuda.cross_covariance_plain(dom, e_dom, x_m, e_m, 1.0))
-    cc_call_ms = time_ms(lambda: kernels_cuda.cross_covariance(dom, e_dom, x_m, e_m, 1.0))
-    cc_bound, cc_by = bound(4 * (5 * D + 5 * M + D * M), CROSS_COV_OPS * D * M)
-    emit("kernel", name="cross_covariance", shape=[D, M], max_abs_err=cc_abs,
-         max_rel_err=cc_rel, tol=[TOL_ABS, TOL_REL], ok=cc_ok, ms=cc_ms,
-         plain_ms=cc_plain_ms, plain_kernels_per_call=cc_plain_k, call_ms=cc_call_ms, bound_ms=cc_bound, bound_by=cc_by, library_ms=None,
-         library="no single PyTorch call computes this function")
-    if not cc_ok:
-        raise SystemExit("cross-covariance kernel disagrees with its plain version")
+    cc_shapes = []
+    one = slice(i_best, i_best + 1)
+    for x_n, e_n in ((dom, e_dom), (x_m, e_m), (dom[one], e_dom[one])):
+        args = (x_n.contiguous(), e_n.contiguous(), x_m, e_m, 1.0)
+        Nn = x_n.shape[0]
+        got = kernels_cuda.cross_covariance(*args)
+        repeat = bool(torch.equal(got, kernels_cuda.cross_covariance(*args)))
+        cc_abs, cc_rel, cc_ok = errors(got, kernels_cuda.cross_covariance_plain(*args))
+        cc_ms, _ = device_ms(lambda: kernels_cuda.cross_covariance(*args))
+        cc_plain_ms, cc_plain_k = device_ms(lambda: kernels_cuda.cross_covariance_plain(*args))
+        cc_call_ms = time_ms(lambda: kernels_cuda.cross_covariance(*args))
+        cc_bound, cc_by = bound(4 * (5 * Nn + 5 * M + Nn * M), CROSS_COV_OPS * Nn * M)
+        cc_shapes.append(dict(shape=[Nn, M], max_abs_err=cc_abs, max_rel_err=cc_rel, ms=cc_ms,
+                              plain_ms=cc_plain_ms, bound_ms=cc_bound, bound_by=cc_by))
+        emit("kernel", name="cross_covariance", tol=[TOL_ABS, TOL_REL], ok=cc_ok,
+             two_launches_bitwise_equal=repeat, plain_kernels_per_call=cc_plain_k,
+             call_ms=cc_call_ms, library_ms=None,
+             library="no single PyTorch call computes this function", **cc_shapes[-1])
+        if not cc_ok:
+            raise SystemExit("cross-covariance kernel disagrees with its plain version "
+                             f"at {Nn} x {M}")
+        if not repeat:
+            raise SystemExit(f"two cross-covariance launches at {Nn} x {M} differ")
 
-    # ---- 5. main path: ComoSeq, 120 clutter frames -------------------------
+    # ---- 4. plane: the accuracy guard --------------------------------------
+    # The 25-frame plane sequence of the JAX package's end-to-end test
+    # (step 0.012), at full size with the default config, both kernels
+    # launched.  Unlike the clutter run below, its ATE does not move with the
+    # kernels' rounding (PERF.md), so a guard on it judges a kernel change.
+    ds_p = SyntheticDataset(n_frames=25, img_size=(H, W), seed=0, scene="plane", step=0.012,
+                            device=dev)
+    eng_p = ComoSeq(cfg, ds_p.intrinsics, (H, W), device="cuda")
+    eng_p.setup()
+    kernels_cuda.cross_covariance.launches = 0
+    sampler_cuda.downdate_step.launches = 0
+    t0 = time.perf_counter()
+    for i in range(len(ds_p)):
+        ts, rgb = ds_p[i]
+        eng_p.step(float(ts), rgb)
+    eng_p.finish()
+    torch.cuda.synchronize()
+    plane_ate = ate_m(eng_p, ds_p)
+    plane_launches = {"cross_covariance": kernels_cuda.cross_covariance.launches,
+                      "sampler_downdate": sampler_cuda.downdate_step.launches}
+    emit("plane", frames=len(ds_p), frames_tracked=len(eng_p.timestamps),
+         num_kf=eng_p.mapping.num_kf, num_ow=eng_p.mapping.num_ow, ate_m=plane_ate,
+         guard_m=PLANE_ATE_GUARD_M, launches=plane_launches,
+         seconds=time.perf_counter() - t0)
+    if min(plane_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the plane phase: {plane_launches}")
+    if not plane_ate < PLANE_ATE_GUARD_M:
+        raise SystemExit(f"plane ATE {plane_ate:.4f} m exceeds the {PLANE_ATE_GUARD_M} m guard")
+    del eng_p, ds_p
+
+    # ---- 5. main_path: ComoSeq, 120 clutter frames -------------------------
     eng = ComoSeq(cfg, ds.intrinsics, (H, W), device="cuda")
     eng.setup()
     kf_ms = []
@@ -221,6 +285,7 @@ def main() -> int:
     eng.mapping.add_keyframe = timed_add_keyframe
     torch.cuda.reset_peak_memory_stats()
     kernels_cuda.cross_covariance.launches = 0
+    kernels_cuda.cross_covariance.launches_by_shape.clear()
     sampler_cuda.downdate_step.launches = 0
     lat = []
     t_start = None
@@ -236,11 +301,11 @@ def main() -> int:
     fps = (len(frames) - 20) / (time.perf_counter() - t_start)
     launches = {"cross_covariance": kernels_cuda.cross_covariance.launches,
                 "sampler_downdate": sampler_cuda.downdate_step.launches}
-    est = eng.poses_numpy()
-    idx = (torch.tensor(eng.timestamps) * ds.fps).round().long().numpy()
-    ate = ate_rmse(est, ds.poses[idx], with_scale=True)
+    by_shape = {f"{n}x{k}": c for (n, k), c in
+                sorted(kernels_cuda.cross_covariance.launches_by_shape.items(), reverse=True)}
+    ate = ate_m(eng, ds)
     m = eng.mapping
-    finite = bool(torch.isfinite(torch.as_tensor(est)).all())
+    finite = bool(torch.isfinite(torch.as_tensor(eng.poses_numpy())).all())
     steady = lat[20:]
     emit("main_path", frames=len(frames), frames_tracked=len(eng.timestamps),
          num_kf=m.num_kf, num_ow=m.num_ow, kf_insertions=len(kf_ms),
@@ -248,7 +313,8 @@ def main() -> int:
          frame_ms_median=statistics.median(steady),
          frame_ms_p90=sorted(steady)[int(0.9 * (len(steady) - 1))],
          kf_insert_ms_median=statistics.median(kf_ms) if kf_ms else None,
-         launches=launches, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, cross_covariance_launches_by_shape=by_shape,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          poses_finite=finite)
     (OUT / "chip_smoke_latency_ms.json").write_text(json.dumps(
         {"frame_ms": lat, "kf_insert_ms": kf_ms}))
@@ -256,10 +322,18 @@ def main() -> int:
         raise SystemExit("main path produced non-finite poses")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: {launches}")
-    if not ate < 0.25:
-        raise SystemExit(f"main-path ATE {ate:.4f} m exceeds the 0.25 m guard")
+    # Checks that catch a lost tracker, not a rounding change: this run is
+    # chaotic, and 20 runs on an H100 (seeds 0-9, with the kernels and with
+    # their plain versions) gave ATEs of 0.04-0.45 m (PERF.md).  Accuracy is
+    # judged by the plane phase above.
+    if len(eng.timestamps) < 110:
+        raise SystemExit(f"main path tracked only {len(eng.timestamps)} of {len(frames)} frames")
+    if not 6 <= m.num_kf <= 9:
+        raise SystemExit(f"main path ended with {m.num_kf} keyframes, expected 6 to 9")
+    if not ate < 0.5:
+        raise SystemExit(f"main-path ATE {ate:.4f} m exceeds 0.5 m: the tracker is lost")
 
-    # per-layer times on the final full-size window: one GN iteration, one
+    # ---- 6. layers: on the final full-size window, one GN iteration and one
     # frame's tracking
     gn_args = (m.state, *m._pairs, m.K, m.dims, m.sigmas, m.damping)
     gn_ms = time_ms(lambda: _gn_step_impl(*gn_args), n=20)
@@ -277,8 +351,8 @@ def main() -> int:
          gn_iter_kernels=gn_kernels, track_frame_ms_median=track_ms,
          track_frame_device_ms=track_dev_ms, track_frame_kernels=track_kernels)
 
-    # where the time goes: device kernel time by name over a few more
-    # frames, against the unprofiled median frame time
+    # ---- 7. profile: device kernel time by name over a few more frames,
+    # against the unprofiled median frame time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,7 +378,7 @@ def main() -> int:
          top_kernels_ms_per_frame={e.key[:70]: e.self_device_time_total / 1e3 / len(prof_frames)
                                    for e in kern[:8]})
 
-    # ---- 4. determinism: two GN steps on the same full-size state ----------
+    # ---- 8. determinism: two GN steps on the same full-size state ----------
     s1, g1 = _gn_step_impl(*gn_args)
     s2, g2 = _gn_step_impl(*gn_args)
     same = all(torch.equal(getattr(s1, f), getattr(s2, f)) for f in s1.fields()) \
@@ -313,11 +387,18 @@ def main() -> int:
     if not same:
         raise SystemExit("two GN steps on the same state differ")
 
+    emit("total", seconds=time.perf_counter() - t_script)
+    # the cross-covariance entry's own keys are those of its full-size shape;
+    # "shapes" holds every timed shape class with its main-path launches
+    for sh in cc_shapes:
+        sh["launches"] = by_shape.get("{}x{}".format(*sh["shape"]), 0)
+    full = cc_shapes[0]
     table = [
         dict(name="cross_covariance", route="cuda", source="como_tpu_torch/csrc/gp_kernels.cu",
              replaces="como_tpu/gp/kernels_pallas.py:95", launches=launches["cross_covariance"],
-             max_abs_err=cc_abs, ms=cc_ms, plain_ms=cc_plain_ms, bound_ms=cc_bound,
-             bound_by=cc_by, library_ms=None),
+             max_abs_err=full["max_abs_err"], ms=full["ms"], plain_ms=full["plain_ms"],
+             bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
+             shapes=cc_shapes, launches_by_shape=by_shape),
         dict(name="sampler_downdate", route="cuda",
              source="como_tpu_torch/csrc/sampler_kernels.cu",
              replaces="como_tpu/gp/sampler_pallas.py:96", launches=launches["sampler_downdate"],

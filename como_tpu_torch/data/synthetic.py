@@ -14,7 +14,7 @@ import torch
 from como_tpu_torch.geometry import lie
 
 
-def default_intrinsics(img_size=(192, 256), device="cpu") -> torch.Tensor:
+def default_intrinsics(img_size=(192, 256), device="cuda") -> torch.Tensor:
     h, w = img_size
     f = 0.9 * w
     return torch.tensor([[f, 0.0, (w - 1) / 2.0], [0.0, f, (h - 1) / 2.0],
@@ -39,7 +39,7 @@ class PlaneScene:
     """A slightly tilted textured plane ~2 m away."""
 
     def __init__(self, img_size=(192, 256), seed: int = 0, num_waves: int = 24,
-                 max_freq: float = 6.0, device="cpu"):
+                 max_freq: float = 6.0, device="cuda"):
         self.img_size = tuple(img_size)
         self.device = torch.device(device)
         self.K = default_intrinsics(img_size, self.device)
@@ -103,7 +103,7 @@ class ClutterScene:
 
     def __init__(self, img_size=(192, 256), seed: int = 0, num_waves: int = 24,
                  max_freq: float = 6.0, num_spheres: int = 5, num_boxes: int = 3,
-                 device="cpu"):
+                 device="cuda"):
         self.img_size = tuple(img_size)
         self.device = torch.device(device)
         self.K = default_intrinsics(img_size, self.device)

@@ -3,14 +3,20 @@
 Replaces the TPU kernel como_tpu/gp/kernels_pallas.py::_cross_cov_kernel
 (cross_covariance_pallas, pallas_call at :95).  Kernel source:
 como_tpu_torch/csrc/gp_kernels.cu; its header states what bounds it on the
-H100 (the (N, M) f32 output write) and how the design meets that (one
-thread per output, anchors staged in shared memory, coalesced row stores).
+H100 (by bytes the (N, M) f32 output write, in practice the issue rate
+and the special-function unit) and what the design does about that (a
+thread owns 4 anchors and walks several rows with float4 stores; per-site
+and per-anchor terms computed once per block; four approximate
+special-function operations per output).
 
 `cross_covariance` dispatches on the tensors' device: CPU tensors go to
 `cross_covariance_plain` (the port of the XLA twin
 como_tpu/gp/kernels.py::cross_covariance / _pair_terms); CUDA tensors
 launch the kernel, or raise.  There is no fallback between the two.
-`cross_covariance.launches` counts kernel launches.
+`cross_covariance.launches` counts kernel launches, and
+`cross_covariance.launches_by_shape` counts them by (N, M).
+`cross_covariance_reassociated` repeats the kernel's reordered arithmetic
+in plain PyTorch, for the CPU tests only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 SQRT3 = math.sqrt(3.0)
 _EPS = 1e-8
+_LOG2E = 1.4426950408889634
 
 
 def matern32(Q: torch.Tensor) -> torch.Tensor:
@@ -53,6 +60,31 @@ def cross_covariance_plain(x_n, e_n, x_m, e_m, scale) -> torch.Tensor:
     return scale * C * matern32(Q)
 
 
+def cross_covariance_reassociated(x_n, e_n, x_m, e_m, scale) -> torch.Tensor:
+    """K (N, M) by the CUDA kernel's arithmetic, step by step in f32 (tests
+    only).  Against `cross_covariance_plain`: the fourth root of
+    det_n * det_m is split into one root per site (with 2 * scale folded
+    in) and one per anchor; sqrt(3) moves under the root of t; one
+    reciprocal of det(E_n + E_m) serves Q and C; exp(-t) is 2^(-t log2 e).
+    The kernel's rcp/sqrt/ex2 approximations stand here as their exact
+    counterparts."""
+    scale = torch.as_tensor(scale, dtype=x_n.dtype, device=x_n.device)
+    an = 2.0 * scale * torch.sqrt(torch.sqrt(e_n[:, 0] * e_n[:, 1] - e_n[:, 2] * e_n[:, 2]))
+    rm = torch.sqrt(torch.sqrt(e_m[:, 0] * e_m[:, 1] - e_m[:, 2] * e_m[:, 2]))
+    d0 = x_n[:, None, 0] - x_m[None, :, 0]
+    d1 = x_n[:, None, 1] - x_m[None, :, 1]
+    s00 = e_n[:, None, 0] + e_m[None, :, 0]
+    s11 = e_n[:, None, 1] + e_m[None, :, 1]
+    s01 = e_n[:, None, 2] + e_m[None, :, 2]
+    inv_det = 1.0 / (s00 * s11 - s01 * s01)
+    quad = s11 * d0 * d0 - 2.0 * s01 * d0 * d1 + s00 * d1 * d1
+    t = torch.sqrt(1.5 * inv_det * quad + 3.0 * _EPS)
+    # fmaxf: a NaN inv_det becomes 0 here and reaches the output through t
+    pos = torch.where(inv_det > 0.0, inv_det, torch.zeros_like(inv_det))
+    w = an[:, None] * rm[None, :] * torch.sqrt(pos + _EPS)
+    return (w + w * t) * torch.exp2(t * -_LOG2E)
+
+
 def _launch(x_n, e_n, x_m, e_m, scale: float) -> torch.Tensor:
     from como_tpu_torch import cuda_lib
 
@@ -67,6 +99,8 @@ def _launch(x_n, e_n, x_m, e_m, scale: float) -> torch.Tensor:
         if t.dtype != torch.float32 or t.device != x_n.device:
             raise ValueError("cross_covariance kernel takes f32 tensors on one device")
     out = torch.empty((N, M), dtype=torch.float32, device=x_n.device)
+    if N == 0 or M == 0:
+        return out              # nothing to launch, nothing counted
     fn = cuda_lib.lib("gp_kernels").como_cross_covariance_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_int,
@@ -76,6 +110,8 @@ def _launch(x_n, e_n, x_m, e_m, scale: float) -> torch.Tensor:
              cuda_lib.ptr(out), N, M, cuda_lib.stream_ptr(x_n.device))
     cuda_lib.check(err, "como_cross_covariance_f32")
     cross_covariance.launches += 1
+    by_shape = cross_covariance.launches_by_shape
+    by_shape[(N, M)] = by_shape.get((N, M), 0) + 1
     return out
 
 
@@ -93,3 +129,4 @@ def cross_covariance(x_n, e_n, x_m, e_m, scale) -> torch.Tensor:
 
 
 cross_covariance.launches = 0
+cross_covariance.launches_by_shape = {}    # {(N, M): launches}

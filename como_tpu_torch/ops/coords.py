@@ -20,7 +20,7 @@ def unnormalize_coords(x_norm: torch.Tensor, dims) -> torch.Tensor:
     return A * x_norm + A - 0.5
 
 
-def coord_grid_rc(img_size, dtype=torch.float32, device=None) -> torch.Tensor:
+def coord_grid_rc(img_size, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """(H*W, 2) full grid of (row, col) coords, row-major."""
     h, w = img_size
     ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),

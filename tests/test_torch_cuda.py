@@ -6,9 +6,11 @@ PyTorch versions on the card (marker `cuda`; they skip without a GPU).
 (`--noconftest` skips tests/conftest.py's JAX set-up, which these tests do
 not need.)
 
-Tolerance 1e-5 abs / 1e-4 rel, the JAX package's Pallas-vs-XLA bound:
-the kernels use plain sqrtf/expf/division (no fast math) and differ from
-the plain version only in operation order and FMA contraction."""
+Tolerance 1e-5 abs / 1e-4 rel, the JAX package's Pallas-vs-XLA bound.
+The downdate kernel uses plain sqrtf/expf/division and differs from its
+plain version only in operation order and FMA contraction; the
+cross-covariance kernel also splits the fourth root and uses the
+rcp/sqrt/ex2 approximations (a few ulp each, ~1e-6 abs on K <= ~1)."""
 
 import numpy as np
 import pytest
@@ -31,19 +33,75 @@ def _sites(g, n, dev):
     return x.to(dev), e.to(dev)
 
 
-@pytest.mark.parametrize("N,M", [(49152, 64), (700, 20), (1, 64), (64, 64), (37, 33)])
-def test_cross_covariance_kernel(cuda, N, M):
+def _offset_view(t):
+    """The same values at an address 4 bytes past a 16-byte boundary
+    (contiguous, but not aligned for vector loads)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("N,M,offset", [
+    (49152, 64, False), (700, 20, False), (1, 64, False), (64, 64, False), (37, 33, False),
+    (49152, 62, False), (5, 4, False), (3, 1, False), (0, 64, False),
+    (130, 64, True), (130, 63, True)])
+def test_cross_covariance_kernel(cuda, N, M, offset):
+    """Full tiles, ragged tiles, rows that are not 16-byte aligned
+    (M % 4 != 0), inputs that are not 16-byte aligned, and the empty case."""
     from como_tpu_torch.gp import kernels_cuda
 
     g = torch.Generator().manual_seed(N + M)
     x_n, e_n = _sites(g, N, cuda)
     x_m, e_m = _sites(g, M, cuda)
+    if offset:
+        x_n, e_n, x_m, e_m = map(_offset_view, (x_n, e_n, x_m, e_m))
+        assert x_n.data_ptr() % 16 == 4 and x_n.is_contiguous()
     n0 = kernels_cuda.cross_covariance.launches
     got = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.3)
     torch.cuda.synchronize()
-    assert kernels_cuda.cross_covariance.launches == n0 + 1
+    assert kernels_cuda.cross_covariance.launches == n0 + (1 if N * M else 0)
+    assert got.shape == (N, M)
     want = kernels_cuda.cross_covariance_plain(x_n, e_n, x_m, e_m, 1.3)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,M", [(49152, 64), (37, 33)])
+def test_cross_covariance_kernel_bitwise_repeatable(cuda, N, M):
+    from como_tpu_torch.gp import kernels_cuda
+
+    g = torch.Generator().manual_seed(1)
+    args = (*_sites(g, N, cuda), *_sites(g, M, cuda), 0.7)
+    a = kernels_cuda.cross_covariance(*args)
+    b = kernels_cuda.cross_covariance(*args)
+    assert torch.equal(a, b)
+
+
+def test_cross_covariance_singular_and_unselected_anchors(cuda):
+    """det(E_n + E_m) = 0 gives NaN as in the plain version; an all-zero
+    (unselected) anchor against a proper site gives exactly 0."""
+    from como_tpu_torch.gp import kernels_cuda
+
+    z2, z3 = torch.zeros((1, 2), device=cuda), torch.zeros((1, 3), device=cuda)
+    assert torch.isnan(kernels_cuda.cross_covariance(z2, z3, z2, z3, 1.0)).all()
+    g = torch.Generator().manual_seed(2)
+    x_n, e_n = _sites(g, 9, cuda)
+    k = kernels_cuda.cross_covariance(x_n, e_n, z2.expand(5, 2), z3.expand(5, 3), 1.0)
+    assert torch.equal(k, torch.zeros((9, 5), device=cuda))
+
+
+def test_launches_by_shape_records_the_shape(cuda):
+    from como_tpu_torch.gp import kernels_cuda
+
+    g = torch.Generator().manual_seed(3)
+    args = (*_sites(g, 11, cuda), *_sites(g, 6, cuda), 1.0)
+    before = kernels_cuda.cross_covariance.launches_by_shape.get((11, 6), 0)
+    total = kernels_cuda.cross_covariance.launches
+    kernels_cuda.cross_covariance(*args)
+    kernels_cuda.cross_covariance(*args)
+    assert kernels_cuda.cross_covariance.launches_by_shape[(11, 6)] == before + 2
+    assert kernels_cuda.cross_covariance.launches == total + 2
+    assert sum(kernels_cuda.cross_covariance.launches_by_shape.values()) \
+        == kernels_cuda.cross_covariance.launches
 
 
 def test_sampler_kernel_vs_plain(cuda):

@@ -64,6 +64,71 @@ def test_cross_covariance_plain_vs_pallas_interpret(cc_inputs):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+def _hard_sites(rng, n):
+    """Sites over the full [-1, 1] span with determinants from 1e-8 up and
+    correlations up to |e01| = 0.99 sqrt(e00 e11)."""
+    x = rng.uniform(-1, 1, (n, 2))
+    rho = rng.uniform(-0.99, 0.99, n)
+    det = 10.0 ** rng.uniform(-8, 0, n)
+    aspect = 10.0 ** rng.uniform(-0.5, 0.5, n)
+    prod = det / (1.0 - rho ** 2)                  # e00 * e11
+    e00, e11 = np.sqrt(prod) * aspect, np.sqrt(prod) / aspect
+    e = np.stack([e00, e11, rho * np.sqrt(prod)], -1)
+    return x.astype(np.float32), e.astype(np.float32)
+
+
+def _cc_case(name):
+    if name == "benign_700x20":
+        rng = np.random.default_rng(0)
+        return (*_sites(rng, 700), *_sites(rng, 20, cross=0.0))
+    rng = np.random.default_rng(11)
+    n, m = {"hard_300x33": (300, 33), "hard_1x64": (1, 64), "hard_97x1": (97, 1),
+            "hard_coincident_40x40": (40, 40)}[name]
+    x_n, e_n = _hard_sites(rng, n)
+    x_m, e_m = _hard_sites(rng, m)
+    if name == "hard_coincident_40x40":
+        x_m = x_n.copy()                           # every site on an anchor
+        x_m[::2] += np.float32(1e-4)               # and some a hair away
+    return x_n, e_n, x_m, e_m
+
+
+@pytest.mark.parametrize("case", ["benign_700x20", "hard_300x33", "hard_1x64", "hard_97x1",
+                                  "hard_coincident_40x40"])
+def test_cross_covariance_reassociated_vs_jax(case):
+    """The CUDA kernel's reordered arithmetic (split fourth roots, sqrt(3)
+    under the root, one shared reciprocal, exp as exp2), mirrored in plain
+    PyTorch, against the JAX XLA function and the TPU kernel in interpret
+    mode: rtol 1e-4 / atol 1e-5, the bound the kernel is held to on the
+    card.  What remains for the card is the rcp/sqrt/ex2 approximations."""
+    inp = _cc_case(case)
+    got = kernels_cuda.cross_covariance_reassociated(*map(_t, inp), 1.3).numpy()
+    assert got.shape == (inp[0].shape[0], inp[2].shape[0]) and np.isfinite(got).all()
+    want = np.asarray(jkernels.cross_covariance(*map(jnp.asarray, inp), 1.3))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    with pltpu.force_tpu_interpret_mode():
+        want_p = np.asarray(jkp.cross_covariance_pallas(*map(jnp.asarray, inp), 1.3))
+    np.testing.assert_allclose(got, want_p, rtol=1e-4, atol=1e-5)
+    plain = kernels_cuda.cross_covariance_plain(*map(_t, inp), 1.3).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-4, atol=1e-5)
+
+
+def test_cross_covariance_reassociated_singular_is_nan():
+    """det(E_n + E_m) = 0 gives NaN in the plain version and in the
+    kernel's arithmetic alike; an unselected (all-zero) anchor against a
+    proper site gives exactly 0, as the sampler loop relies on."""
+    z2, z3 = torch.zeros((1, 2)), torch.zeros((1, 3))
+    for fn in (kernels_cuda.cross_covariance_plain, kernels_cuda.cross_covariance_reassociated):
+        assert torch.isnan(fn(z2, z3, z2, z3, 1.0)).all()
+        k = fn(torch.tensor([[0.3, -0.2]]), torch.tensor([[0.2, 0.3, 0.05]]), z2, z3, 1.0)
+        assert float(k) == 0.0
+
+
+def test_launches_by_shape_empty_after_cpu_call(cc_inputs):
+    tkernels.cross_covariance(*map(_t, cc_inputs), 1.0)
+    assert kernels_cuda.cross_covariance.launches == 0
+    assert kernels_cuda.cross_covariance.launches_by_shape == {}
+
+
 def test_diag_and_interpolate(cc_inputs):
     rng = np.random.default_rng(1)
     e = cc_inputs[1]
