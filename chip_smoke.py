@@ -10,13 +10,23 @@ Phases, in this order, one JSON line each:
              shapes (inputs from a rendered 192x256 clutter frame): max
              abs/rel error, kernel / plain time, bound.  One line for the
              sampler downdate (64 x 49,152) and one per shape class of the
-             cross-covariance (49,152 x 64, 64 x 64, 1 x 64), each with a
-             bitwise-repeat check
+             cross-covariance (49,152 x 64, the SfM pyramid's 12,288 x 64 and
+             3,072 x 64, 64 x 64, 1 x 64), each with a bitwise-repeat check
+  unet       the learned prior (net/depthcov.py, models/depthcov.msgpack) on
+             a fixed image against tests/data/unet_golden.npz, written by the
+             JAX package (tests/torch_make_unet_golden.py): f32 and bf16
+             convolutions, two passes bitwise equal, device ms per forward
   plane      ComoSeq on the 25-frame plane sequence at 192x256 with
              configs/como.yml: the accuracy guard (ATE < PLANE_ATE_GUARD_M)
   main_path  ComoSeq on 120 clutter frames at 192x256 with configs/como.yml:
              frames, KF/OW counts, ATE, FPS, latencies, kernel launches
              (the cross-covariance's also by shape)
+  cli        como_tpu_torch.cli.main on 60 clutter frames with
+             configs/como_unet.yml (the UNet prior in bf16), no --device: the
+             trajectory file parses, frames / keyframes / ATE, both kernels
+             launched
+  rgb        ComoSeq on 25 plane_chroma frames with color: rgb in tracking
+             and mapping: ATE under the plane guard, both kernels launched
   layers     one GN iteration and one frame's tracking on the final window
   profile    device time by kernel over a few more frames, idle share
   determinism two GN steps on the final full-size window: bitwise equal
@@ -29,7 +39,11 @@ beside it, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -47,6 +61,12 @@ N_TIMED = 30
 # sequence (tests/test_e2e_seq.py).  Three runs on an H100 (the kernels, their
 # plain versions, scene seed 1) all gave less than half of it (PERF.md).
 PLANE_ATE_GUARD_M = 0.02
+# The UNet prior against the JAX package's golden output: f32 convolutions
+# within UNET_F32_TOL (abs, rel); bf16 convolutions within the bf16 floor
+# (median relative difference, max abs), which is what JAX's own bf16 run
+# differs from its f32 run by (tests/test_torch_unet.py).
+UNET_F32_TOL = (5e-4, 1e-3)
+UNET_BF16_FLOOR = (2e-2, 0.5)
 
 
 def emit(phase: str, **kw):
@@ -109,6 +129,64 @@ def errors(got, want):
     return float(d.max()), float(rel[want.abs() > 1e-6].max()) if (want.abs() > 1e-6).any() else 0.0, ok
 
 
+def golden_image(seed: int, hw):
+    """(1, 3, H, W) f32 in [0, 1): the input of tests/data/unet_golden.npz
+    (tests/torch_make_unet_golden.py carries the same function; exact f32
+    arithmetic, so the bytes do not depend on the numpy version)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    coarse = rng.random((3, h // 8, w // 8), dtype=np.float32)
+    fine = rng.random((3, h, w), dtype=np.float32)
+    blocks = np.kron(coarse, np.ones((1, 8, 8), np.float32))
+    return (np.float32(0.8) * blocks + np.float32(0.2) * fine)[None]
+
+
+def unet_golden_errors(cov, want, f32: bool) -> dict:
+    """A prior output (numpy, sub-sampled like the golden) against the
+    golden: max abs and median relative difference, and whether it is
+    within UNET_F32_TOL (f32) or UNET_BF16_FLOOR (bf16)."""
+    import numpy as np
+
+    d = np.abs(cov - want)
+    med_rel = float(np.median(d / np.maximum(np.abs(want), 1e-12)))
+    if f32:
+        ok = bool((d <= UNET_F32_TOL[0] + UNET_F32_TOL[1] * np.abs(want)).all())
+    else:
+        ok = med_rel <= UNET_BF16_FLOOR[0] and float(d.max()) <= UNET_BF16_FLOOR[1]
+    return dict(max_abs_err=float(d.max()), median_rel_err=med_rel, ok=ok)
+
+
+def read_tum(path):
+    """(timestamps (n,), poses (n, 4, 4)) of a TUM trajectory file."""
+    import numpy as np
+
+    from como_tpu_torch.geometry.lie import tq_to_pose
+
+    rows = np.loadtxt(path, ndmin=2)
+    return rows[:, 0], np.stack([tq_to_pose(r[1:]) for r in rows])
+
+
+def reset_launches():
+    from como_tpu_torch.gp import kernels_cuda, sampler_cuda
+
+    kernels_cuda.cross_covariance.launches = 0
+    kernels_cuda.cross_covariance.launches_by_shape.clear()
+    sampler_cuda.downdate_step.launches = 0
+
+
+def read_launches():
+    """({kernel: launches}, {"NxM": cross-covariance launches}) since
+    reset_launches()."""
+    from como_tpu_torch.gp import kernels_cuda, sampler_cuda
+
+    by_shape = {f"{n}x{k}": c for (n, k), c in
+                sorted(kernels_cuda.cross_covariance.launches_by_shape.items(), reverse=True)}
+    return {"cross_covariance": kernels_cuda.cross_covariance.launches,
+            "sampler_downdate": sampler_cuda.downdate_step.launches}, by_shape
+
+
 def ate_m(eng, ds) -> float:
     """Scale-aligned ATE of an engine's poses against the dataset's."""
     import torch
@@ -121,7 +199,7 @@ def ate_m(eng, ds) -> float:
 
 def main() -> int:
     t_script = time.perf_counter()
-    if not (HERE / "como_tpu_torch").is_dir() or not (HERE / "configs" / "como.yml").is_file():
+    if not (HERE / "como_tpu_torch").is_dir() or not (HERE / "configs" / "como_unet.yml").is_file():
         print("chip_smoke.py: the como_tpu_torch package and configs/ must sit beside "
               "this script", file=sys.stderr)
         return 2
@@ -155,6 +233,7 @@ def main() -> int:
     from como_tpu_torch.odom.backend.gn_step import _gn_step_impl
     from como_tpu_torch.odom.tracking import track_frame
     from como_tpu_torch.runtime.seq import ComoSeq
+    from como_tpu_torch.utils.io import ate_rmse
 
     cfg = load_config(str(HERE / "configs" / "como.yml"))
     H, W = cfg.img_size
@@ -210,14 +289,24 @@ def main() -> int:
     if not (dd_ok and same_inds):
         raise SystemExit("sampler downdate kernel disagrees with its plain version")
 
-    # cross-covariance at its three main-path shape classes: all H*W sites x
-    # the M = 64 anchors just sampled (keyframe insertion), M x M (K_mm) and
-    # 1 x M (once per sampler iteration)
+    # cross-covariance at its five main-path shape classes: all H*W sites x
+    # the M = 64 anchors just sampled (keyframe insertion), the sites of
+    # pyramid levels 1 and 2 of the same covariance image (SfM bootstrap,
+    # as sfm.setup_reference builds them), M x M (K_mm) and 1 x M (once per
+    # sampler iteration)
+    from como_tpu_torch.gp.kernels import interpolate_cov_params
+    from como_tpu_torch.ops.coords import coord_grid_rc, normalize_coords
+
     x_m, e_m = res_k.coords_norm.contiguous(), res_k.covs.contiguous()
     M = x_m.shape[0]
     cc_shapes = []
     one = slice(i_best, i_best + 1)
-    for x_n, e_n in ((dom, e_dom), (x_m, e_m), (dom[one], e_dom[one])):
+    pyr = []
+    for lvl in (1, 2):
+        hw_l = (H >> lvl, W >> lvl)
+        norm_l = normalize_coords(coord_grid_rc(hw_l, torch.float32, dev), list(hw_l))
+        pyr.append((norm_l, interpolate_cov_params(cov_img, norm_l)))
+    for x_n, e_n in ((dom, e_dom), *pyr, (x_m, e_m), (dom[one], e_dom[one])):
         args = (x_n.contiguous(), e_n.contiguous(), x_m, e_m, 1.0)
         Nn = x_n.shape[0]
         got = kernels_cuda.cross_covariance(*args)
@@ -239,7 +328,42 @@ def main() -> int:
         if not repeat:
             raise SystemExit(f"two cross-covariance launches at {Nn} x {M} differ")
 
-    # ---- 4. plane: the accuracy guard --------------------------------------
+    # ---- 4. unet: the learned prior against the JAX package's golden ---------
+    import numpy as np
+
+    gold = np.load(HERE / "tests" / "data" / "unet_golden.npz")
+    g_hw, g_stride = tuple(int(v) for v in gold["shape"]), int(gold["stride"])
+    g_rgb = golden_image(int(gold["seed"]), g_hw)
+    if hashlib.sha256(g_rgb.tobytes()).hexdigest() != str(gold["input_sha256"]):
+        raise SystemExit("the golden file's input could not be rebuilt from its seed")
+    g_rgb = torch.from_numpy(g_rgb).to(dev)
+    unet = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prior = DepthCovPrior("unet", "models/depthcov.msgpack", compute_dtype=dt)
+        params = list(prior.unet.parameters())
+        if not all(p.is_cuda and p.dtype == torch.float32 for p in params):
+            raise SystemExit("the UNet's parameters are not f32 tensors on the card")
+        cov = prior.cov_params(g_rgb)
+        repeat = bool(torch.equal(cov, prior.cov_params(g_rgb)))
+        err = unet_golden_errors(cov[:, ::g_stride, ::g_stride].cpu().numpy(), gold[name],
+                                 f32=name == "f32")
+        fwd_ms, fwd_kernels = device_ms(lambda: prior.cov_params(g_rgb), n=10)
+        unet[name] = dict(err, two_passes_bitwise_equal=repeat, device_ms=fwd_ms,
+                          call_ms=time_ms(lambda: prior.cov_params(g_rgb), n=10),
+                          kernels_per_forward=fwd_kernels)
+        param_bytes = sum(p.numel() * p.element_size() for p in params)
+    emit("unet", image=list(g_hw), checkpoint="models/depthcov.msgpack",
+         parameters=sum(p.numel() for p in params), parameter_bytes_on_device=param_bytes,
+         f32_tol=list(UNET_F32_TOL), bf16_floor=list(UNET_BF16_FLOOR), **unet)
+    for name, u in unet.items():
+        if not u["ok"]:
+            raise SystemExit(f"UNet prior ({name} convolutions) disagrees with the JAX "
+                             f"package's golden output: {u}")
+        if not u["two_passes_bitwise_equal"]:
+            raise SystemExit(f"two UNet forward passes ({name}) differ")
+    del prior, params, cov
+
+    # ---- 5. plane: the accuracy guard --------------------------------------
     # The 25-frame plane sequence of the JAX package's end-to-end test
     # (step 0.012), at full size with the default config, both kernels
     # launched.  Unlike the clutter run below, its ATE does not move with the
@@ -248,8 +372,7 @@ def main() -> int:
                             device=dev)
     eng_p = ComoSeq(cfg, ds_p.intrinsics, (H, W), device="cuda")
     eng_p.setup()
-    kernels_cuda.cross_covariance.launches = 0
-    sampler_cuda.downdate_step.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for i in range(len(ds_p)):
         ts, rgb = ds_p[i]
@@ -257,8 +380,7 @@ def main() -> int:
     eng_p.finish()
     torch.cuda.synchronize()
     plane_ate = ate_m(eng_p, ds_p)
-    plane_launches = {"cross_covariance": kernels_cuda.cross_covariance.launches,
-                      "sampler_downdate": sampler_cuda.downdate_step.launches}
+    plane_launches, _ = read_launches()
     emit("plane", frames=len(ds_p), frames_tracked=len(eng_p.timestamps),
          num_kf=eng_p.mapping.num_kf, num_ow=eng_p.mapping.num_ow, ate_m=plane_ate,
          guard_m=PLANE_ATE_GUARD_M, launches=plane_launches,
@@ -269,7 +391,7 @@ def main() -> int:
         raise SystemExit(f"plane ATE {plane_ate:.4f} m exceeds the {PLANE_ATE_GUARD_M} m guard")
     del eng_p, ds_p
 
-    # ---- 5. main_path: ComoSeq, 120 clutter frames -------------------------
+    # ---- 6. main_path: ComoSeq, 120 clutter frames -------------------------
     eng = ComoSeq(cfg, ds.intrinsics, (H, W), device="cuda")
     eng.setup()
     kf_ms = []
@@ -284,9 +406,7 @@ def main() -> int:
 
     eng.mapping.add_keyframe = timed_add_keyframe
     torch.cuda.reset_peak_memory_stats()
-    kernels_cuda.cross_covariance.launches = 0
-    kernels_cuda.cross_covariance.launches_by_shape.clear()
-    sampler_cuda.downdate_step.launches = 0
+    reset_launches()
     lat = []
     t_start = None
     for i, (ts, rgb) in enumerate(frames):
@@ -299,10 +419,7 @@ def main() -> int:
     eng.finish()
     torch.cuda.synchronize()
     fps = (len(frames) - 20) / (time.perf_counter() - t_start)
-    launches = {"cross_covariance": kernels_cuda.cross_covariance.launches,
-                "sampler_downdate": sampler_cuda.downdate_step.launches}
-    by_shape = {f"{n}x{k}": c for (n, k), c in
-                sorted(kernels_cuda.cross_covariance.launches_by_shape.items(), reverse=True)}
+    launches, by_shape = read_launches()
     ate = ate_m(eng, ds)
     m = eng.mapping
     finite = bool(torch.isfinite(torch.as_tensor(eng.poses_numpy())).all())
@@ -333,7 +450,100 @@ def main() -> int:
     if not ate < 0.5:
         raise SystemExit(f"main-path ATE {ate:.4f} m exceeds 0.5 m: the tracker is lost")
 
-    # ---- 6. layers: on the final full-size window, one GN iteration and one
+    # ---- 7. cli: the product surface with the learned prior -----------------
+    # como_tpu_torch.cli.main in this process, no --device (it must land on
+    # the card), full width: 192x256, default window, the shipped UNet with
+    # bf16 convolutions, on the first 60 frames of the main path's sequence.
+    from como_tpu_torch import cli
+    from como_tpu_torch.odom.mapping import Mapping
+
+    cli_dir = OUT / "cli"
+    traj = cli_dir / "synthetic.txt"
+    traj.unlink(missing_ok=True)
+    cli_kf_ms, unet_calls = [], []
+    add_kf_orig, cov_orig = Mapping.add_keyframe, DepthCovPrior.cov_params
+
+    def cli_add_keyframe(self, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        add_kf_orig(self, *a)
+        torch.cuda.synchronize()
+        cli_kf_ms.append((time.perf_counter() - t) * 1e3)
+
+    def cli_cov_params(self, rgb):
+        unet_calls.append(self.mode)
+        return cov_orig(self, rgb)
+
+    Mapping.add_keyframe, DepthCovPrior.cov_params = cli_add_keyframe, cli_cov_params
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as cli_stdout:
+            eng_c = cli.main(["--dataset_type", "synthetic:clutter",
+                              "--config", str(HERE / "configs" / "como_unet.yml"),
+                              "--max_frames", "60", "--save_traj", str(cli_dir)])
+    finally:
+        Mapping.add_keyframe, DepthCovPrior.cov_params = add_kf_orig, cov_orig
+    cli_seconds = time.perf_counter() - t0
+    cli_launches, cli_by_shape = read_launches()
+    cli_line = cli_stdout.getvalue().strip().splitlines()[-1]
+    fps_m = re.search(r"\(([0-9.]+) FPS\)", cli_line)
+    if not traj.is_file() or fps_m is None:
+        raise SystemExit(f"the CLI wrote no trajectory or no summary line: {cli_line!r}")
+    c_ts, c_poses = read_tum(traj)
+    c_idx = np.round(c_ts * ds.fps).astype(int)
+    cli_finite = bool(np.isfinite(c_poses).all())
+    cli_ate = ate_rmse(c_poses, ds.poses[c_idx], with_scale=True) if cli_finite else None
+    mc = eng_c.mapping
+    emit("cli", output_line=cli_line, trajectory=str(traj.relative_to(HERE)), frames=60,
+         frames_with_pose=len(c_ts), num_kf=mc.num_kf, num_ow=mc.num_ow,
+         kf_insertions=len(cli_kf_ms), ate_m=cli_ate, fps=float(fps_m.group(1)),
+         seconds_with_setup=cli_seconds,
+         kf_insert_ms_median=statistics.median(cli_kf_ms) if cli_kf_ms else None,
+         prior=mc.prior.mode, unet_compute_dtype=str(mc.prior.unet.compute_dtype),
+         unet_calls=len(unet_calls), engine_device=str(eng_c.device),
+         launches=cli_launches, cross_covariance_launches_by_shape=cli_by_shape,
+         poses_finite=cli_finite)
+    if eng_c.device.type != "cuda" or unet_calls.count("unet") != len(unet_calls):
+        raise SystemExit("the CLI did not run the UNet prior on the card")
+    if not cli_finite:
+        raise SystemExit("the CLI's trajectory holds non-finite poses")
+    if len(c_ts) < 50:
+        raise SystemExit(f"the CLI's trajectory holds {len(c_ts)} of 60 frames")
+    if mc.num_kf < 3:
+        raise SystemExit(f"the CLI run ended with {mc.num_kf} keyframes, expected >= 3")
+    if min(cli_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the cli phase: {cli_launches}")
+    if not cli_ate < 0.5:      # a lost-tracker check, as on the main path
+        raise SystemExit(f"cli ATE {cli_ate:.4f} m exceeds 0.5 m: the tracker is lost")
+    del eng_c, mc
+
+    # ---- 8. rgb: color: rgb in tracking and mapping --------------------------
+    cfg_rgb = load_config(str(HERE / "configs" / "como.yml"),
+                          {"tracking": {"color": "rgb"}, "mapping": {"color": "rgb"}})
+    ds_r = SyntheticDataset(n_frames=25, img_size=(H, W), seed=0, scene="plane_chroma",
+                            step=0.012, device=dev)
+    eng_r = ComoSeq(cfg_rgb, ds_r.intrinsics, (H, W), device="cuda")
+    eng_r.setup()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng_r.run(ds_r)
+    torch.cuda.synchronize()
+    rgb_ate = ate_m(eng_r, ds_r)
+    rgb_launches, _ = read_launches()
+    emit("rgb", scene="plane_chroma", frames=len(ds_r), frames_tracked=len(eng_r.timestamps),
+         num_kf=eng_r.mapping.num_kf, num_ow=eng_r.mapping.num_ow, channels=eng_r.mapping.C,
+         tracking_rows=int(eng_r.tracking.levels[-1].vals.shape[0]), ate_m=rgb_ate,
+         guard_m=PLANE_ATE_GUARD_M, launches=rgb_launches, seconds=time.perf_counter() - t0)
+    if eng_r.mapping.C != 3 or eng_r.tracking.levels[-1].vals.shape[0] != 3 * H * W:
+        raise SystemExit("the rgb phase did not run three channels")
+    if min(rgb_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the rgb phase: {rgb_launches}")
+    if not rgb_ate < PLANE_ATE_GUARD_M:
+        raise SystemExit(f"rgb ATE {rgb_ate:.4f} m exceeds the {PLANE_ATE_GUARD_M} m guard")
+    del eng_r, ds_r
+
+    # ---- 9. layers: on the final full-size window, one GN iteration and one
     # frame's tracking
     gn_args = (m.state, *m._pairs, m.K, m.dims, m.sigmas, m.damping)
     gn_ms = time_ms(lambda: _gn_step_impl(*gn_args), n=20)
@@ -351,7 +561,7 @@ def main() -> int:
          gn_iter_kernels=gn_kernels, track_frame_ms_median=track_ms,
          track_frame_device_ms=track_dev_ms, track_frame_kernels=track_kernels)
 
-    # ---- 7. profile: device kernel time by name over a few more frames,
+    # ---- 10. profile: device kernel time by name over a few more frames,
     # against the unprofiled median frame time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -378,7 +588,7 @@ def main() -> int:
          top_kernels_ms_per_frame={e.key[:70]: e.self_device_time_total / 1e3 / len(prof_frames)
                                    for e in kern[:8]})
 
-    # ---- 8. determinism: two GN steps on the same full-size state ----------
+    # ---- 11. determinism: two GN steps on the same full-size state ----------
     s1, g1 = _gn_step_impl(*gn_args)
     s2, g2 = _gn_step_impl(*gn_args)
     same = all(torch.equal(getattr(s1, f), getattr(s2, f)) for f in s1.fields()) \
@@ -392,18 +602,22 @@ def main() -> int:
     # "shapes" holds every timed shape class with its main-path launches
     for sh in cc_shapes:
         sh["launches"] = by_shape.get("{}x{}".format(*sh["shape"]), 0)
+    by_path = {"plane": plane_launches, "main_path": launches, "cli": cli_launches,
+               "rgb": rgb_launches}
     full = cc_shapes[0]
     table = [
         dict(name="cross_covariance", route="cuda", source="como_tpu_torch/csrc/gp_kernels.cu",
              replaces="como_tpu/gp/kernels_pallas.py:95", launches=launches["cross_covariance"],
              max_abs_err=full["max_abs_err"], ms=full["ms"], plain_ms=full["plain_ms"],
              bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
-             shapes=cc_shapes, launches_by_shape=by_shape),
+             shapes=cc_shapes, launches_by_shape=by_shape,
+             launches_by_path={k: v["cross_covariance"] for k, v in by_path.items()}),
         dict(name="sampler_downdate", route="cuda",
              source="como_tpu_torch/csrc/sampler_kernels.cu",
              replaces="como_tpu/gp/sampler_pallas.py:96", launches=launches["sampler_downdate"],
              max_abs_err=dd_abs, ms=dd_ms, plain_ms=dd_plain_ms, bound_ms=dd_bound,
-             bound_by=dd_by, library_ms=None),
+             bound_by=dd_by, library_ms=None,
+             launches_by_path={k: v["sampler_downdate"] for k, v in by_path.items()}),
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,116 @@
+"""Headless CLI entry point (port of como_tpu/cli.py).
+
+    python -m como_tpu_torch.cli --dataset_type tum --dataset_dir .../fr2_desk/
+    python -m como_tpu_torch.cli --dataset_type synthetic:clutter \\
+        --config configs/como_unet.yml --max_frames 60 --save_traj results
+
+The flags are those of the JAX package's CLI, plus --device (default
+"cuda").  Without a CUDA device the run fails unless --device cpu is given;
+it does not carry on on the CPU.  The pipeline runtime and the viewer are
+not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import time
+
+
+def _sleep_until(deadline: float) -> None:
+    """Sleep to an absolute time.monotonic() deadline (no per-frame drift,
+    unlike relative sleeps)."""
+    dt = deadline - time.monotonic()
+    if dt > 0:
+        time.sleep(dt)
+
+
+def main(argv=None):
+    """Run one sequence; returns the engine (for in-process callers)."""
+    p = argparse.ArgumentParser(description="como_tpu_torch odometry")
+    p.add_argument("--dataset_type", type=str, required=True,
+                   help="tum | replica | scannet | realsense | synthetic[:scene]")
+    p.add_argument("--dataset_dir", type=str, default=None)
+    p.add_argument("--config", type=str, default=None,
+                   help="YAML config overriding defaults (configs/como.yml)")
+    p.add_argument("--runtime", type=str, default="seq",
+                   choices=["seq", "pipeline"])
+    p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--save_traj", type=str, default="results")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace frames to dataset timestamps")
+    p.add_argument("--viz", action="store_true",
+                   help="attach the Open3D viewer (not ported yet)")
+    p.add_argument("--profile", type=str, default=None,
+                   help="directory for a torch profiler trace (trace.json)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="mapping-state checkpoint to resume from")
+    p.add_argument("--save_state", type=str, default=None,
+                   help="write a mapping-state checkpoint at the end")
+    p.add_argument("--log", type=str, default=None,
+                   help="jsonl event-log path")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the engine: cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    if args.runtime == "pipeline":
+        raise NotImplementedError(
+            "--runtime pipeline is not ported yet (ROADMAP §1: runtime/pipeline.py)")
+    if args.viz:
+        raise NotImplementedError("--viz is not ported yet (ROADMAP §1: viz/)")
+
+    import torch
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+
+    from como_tpu_torch.config import load_config
+    from como_tpu_torch.data.datasets import get_dataset
+    from como_tpu_torch.runtime.seq import ComoSeq
+    from como_tpu_torch.utils import profiling
+
+    cfg = load_config(args.config)
+    dataset = get_dataset(args.dataset_type, cfg.img_size, args.dataset_dir,
+                          device=args.device)
+    eng = ComoSeq(cfg, dataset.intrinsics, cfg.img_size, device=args.device)
+    eng.setup()
+    if args.log:
+        from como_tpu_torch.utils.log import EventLog
+        eng.log = EventLog(args.log)
+    if args.resume:
+        from como_tpu_torch.utils.checkpoint import load_mapping_state
+        load_mapping_state(eng.mapping, args.resume, device=args.device)
+
+    n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
+    t_start = time.perf_counter()
+    t_pace0 = time.monotonic()
+    t0_ts = None
+    with profiling.trace(args.profile) if args.profile else contextlib.nullcontext():
+        for i in range(n):
+            ts, rgb = dataset[i]
+            ts = float(ts)
+            if args.realtime and not dataset.is_live:
+                t0_ts = ts if t0_ts is None else t0_ts
+                _sleep_until(t_pace0 + (ts - t0_ts))
+            eng.step(ts, rgb)
+        eng.finish()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t_start
+
+    if args.save_state:
+        from como_tpu_torch.utils.checkpoint import save_mapping_state
+        save_mapping_state(eng.mapping, args.save_state)
+
+    os.makedirs(args.save_traj, exist_ok=True)
+    name = getattr(dataset, "save_traj_name", args.dataset_type)
+    out = os.path.join(args.save_traj, name + ".txt")
+    eng.save_trajectory(out)
+    eng.log.close()
+    print(f"{n} frames in {wall:.1f}s ({n / wall:.1f} FPS); trajectory -> {out}")
+    return eng
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """Procedural multi-view test scenes with exact ground truth (port of
-como_tpu/data/synthetic.py; the gray base scenes "plane" and "clutter").
+como_tpu/data/synthetic.py): the scenes "plane" and "clutter", their
+chromatic variants and the photometric-nuisance variants.
 
 Scene parameters are drawn with numpy from the same seeds and in the same
 order as the JAX package, so the rendered frames match its frames; frames
@@ -8,10 +9,46 @@ are rendered by ray casting on the dataset's device.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from como_tpu_torch.geometry import lie
+
+
+class PhotoNuisance(NamedTuple):
+    """Photometric nuisance applied to a clean render I:
+
+        I' = exp(a_t) * (V(p) * I) + b_t + noise_sigma * N(0, 1)
+
+    (a_t, b_t) is a known per-frame AR(1) walk (SyntheticDataset.gt_affine)
+    and V(p) = 1 - vignette * (r / r_max)^2 a static radial falloff.
+    Exposure and bias are exactly the system's affine-brightness model;
+    vignetting and noise are deliberate violations of it that stress the
+    robust losses.  No sensor clipping.
+    """
+    exposure_jitter: float = 0.0   # AR(1) innovation std of log-gain a_t
+    bias_jitter: float = 0.0       # AR(1) innovation std of bias b_t
+    noise_sigma: float = 0.0       # per-pixel Gaussian sensor noise
+    vignette: float = 0.0          # corner falloff strength in [0, 1)
+    ar_decay: float = 0.97         # AR(1) pole
+
+
+# the "photo" variant: stationary log-gain std ~0.16, bias std ~0.04, 1%
+# sensor noise, 15% corner vignetting
+PHOTO_NUISANCE = PhotoNuisance(exposure_jitter=0.04, bias_jitter=0.01,
+                               noise_sigma=0.01, vignette=0.15)
+
+
+def _apply_nuisance(rgb, a: float, b: float, vmap_img, generator, noise_sigma: float):
+    """`generator` is a CPU generator: the noise field is drawn on the CPU
+    and moved, so a frame does not depend on the device it is rendered on."""
+    out = float(np.exp(np.float32(a))) * (vmap_img * rgb) + float(b)
+    if noise_sigma > 0.0:
+        noise = torch.randn(rgb.shape, generator=generator, dtype=rgb.dtype)
+        out = out + noise_sigma * noise.to(rgb.device)
+    return out
 
 
 def default_intrinsics(img_size=(192, 256), device="cuda") -> torch.Tensor:
@@ -39,7 +76,7 @@ class PlaneScene:
     """A slightly tilted textured plane ~2 m away."""
 
     def __init__(self, img_size=(192, 256), seed: int = 0, num_waves: int = 24,
-                 max_freq: float = 6.0, device="cuda"):
+                 max_freq: float = 6.0, chroma: bool = False, device="cuda"):
         self.img_size = tuple(img_size)
         self.device = torch.device(device)
         self.K = default_intrinsics(img_size, self.device)
@@ -54,6 +91,12 @@ class PlaneScene:
         self.freqs = _f32(f, self.device)
         self.amps = _f32(a, self.device)
         self.phases = _f32(rng.uniform(0, 2 * np.pi, size=num_waves), self.device)
+        # chroma: per-channel phase offsets + an RGB base color decorrelate
+        # the channels (chroma=False keeps the gray x3 render)
+        self.chroma = chroma
+        if chroma:
+            self.base_rgb = _f32(rng.uniform(0.3, 0.7, size=3), self.device)
+            self.chan_phase = _f32(rng.uniform(0, 2 * np.pi, size=3), self.device)
 
     def render(self, T_wc: torch.Tensor):
         """rgb (1, 3, H, W) in [0, 1] and z-depth (1, 1, H, W) from T_wc."""
@@ -65,6 +108,10 @@ class PlaneScene:
         s = (self.d0 - torch.dot(self.normal, t)) / denom
         Pw = t[None, None] + s[..., None] * d_world
         arg = torch.einsum("hwi,ki->hwk", Pw, self.freqs) + self.phases
+        if self.chroma:
+            argc = arg[..., None] + self.chan_phase               # (H, W, K, 3)
+            tex = self.base_rgb + torch.einsum("hwkc,k->hwc", torch.sin(argc), self.amps)
+            return torch.clamp(tex, 0.0, 1.0).permute(2, 0, 1)[None], s[None, None]
         tex = torch.clamp(0.5 + torch.einsum("hwk,k->hw", torch.sin(arg), self.amps),
                           0.0, 1.0)
         return torch.stack([tex, tex, tex], 0)[None], s[None, None]
@@ -103,10 +150,11 @@ class ClutterScene:
 
     def __init__(self, img_size=(192, 256), seed: int = 0, num_waves: int = 24,
                  max_freq: float = 6.0, num_spheres: int = 5, num_boxes: int = 3,
-                 device="cuda"):
+                 chroma: bool = False, device="cuda"):
         self.img_size = tuple(img_size)
         self.device = torch.device(device)
         self.K = default_intrinsics(img_size, self.device)
+        self.chroma = chroma
         rng = np.random.default_rng(seed)
         planes_n = np.array([[0.0, -1.0, 0.02], [0.08, -0.06, -1.0]])
         planes_n = planes_n / np.linalg.norm(planes_n, axis=-1, keepdims=True)
@@ -138,6 +186,10 @@ class ClutterScene:
         self.freqs = _f32(f, dev)
         self.amps = _f32(a, dev)
         self.phases = _f32(ph, dev)
+        # chroma: per-primitive RGB base color + per-channel phase offsets
+        if chroma:
+            self.base_rgb = _f32(rng.uniform(0.3, 0.7, size=(n_prim, 3)), dev)
+            self.chan_phase = _f32(rng.uniform(0, 2 * np.pi, size=(n_prim, 3)), dev)
 
     def render(self, T_wc: torch.Tensor):
         """rgb (1, 3, H, W) in [0, 1] and z-depth (1, 1, H, W) by exact ray casting."""
@@ -173,6 +225,11 @@ class ClutterScene:
         t_hit = torch.clamp(t_hit, max=50.0)
         Pw = o[None, None] + t_hit[..., None] * d
         arg = torch.einsum("hwi,hwki->hwk", Pw, self.freqs[idx]) + self.phases[idx]
+        if self.chroma:
+            argc = arg[..., None] + self.chan_phase[idx][..., None, :]   # (H, W, K, 3)
+            tex = self.base_rgb[idx] + torch.einsum("hwkc,hwk->hwc", torch.sin(argc),
+                                                    self.amps[idx])
+            return torch.clamp(tex, 0.0, 1.0).permute(2, 0, 1)[None], t_hit[None, None]
         tex = self.base[idx] + torch.einsum("hwk,hwk->hw", torch.sin(arg), self.amps[idx])
         tex = torch.clamp(tex, 0.0, 1.0)
         return torch.stack([tex, tex, tex], 0)[None], t_hit[None, None]
@@ -212,34 +269,85 @@ _SCENES = {"plane": PlaneScene, "clutter": ClutterScene}
 
 class SyntheticDataset:
     """Dataset-shaped wrapper: dataset[i] -> (timestamp, rgb (1, 3, H, W)
-    tensor on `device`).  Scenes: "plane", "clutter" (the chromatic and
-    photometric-nuisance variants of the JAX package are not ported)."""
+    tensor on `device`).
+
+    scene="plane" is the single-plane world, scene="clutter" the
+    multi-object world with occlusions.  Variants (scene="<base>_<variant>"):
+      * "<base>_chroma": chromatic textures, clean photometry;
+      * "<base>_photo": chroma + the PHOTO_NUISANCE preset (per-frame
+        exposure/bias walk with known ground truth, sensor noise,
+        vignetting).
+    An explicit `nuisance=PhotoNuisance(...)` overrides the preset.
+
+    The exposure/bias walk is numpy's from `seed + 77` and equals the JAX
+    package's.  The sensor noise of frame idx comes from a torch.Generator
+    seeded from (seed + 177, idx); the JAX package folds idx into
+    PRNGKey(seed + 177).  The two noise fields have the same distribution
+    and differ draw by draw, so a noisy frame equals the JAX frame only up
+    to the noise.
+    """
 
     def __init__(self, n_frames: int = 60, img_size=(192, 256), fps: float = 30.0,
                  seed: int = 0, step: float = 0.02, scene: str = "plane",
-                 rot_step: float | None = None, device="cuda"):
-        if scene not in _SCENES:
-            raise ValueError(f"unknown synthetic scene '{scene}' (have {sorted(_SCENES)}; "
-                             "the _chroma/_photo variants are not ported)")
+                 rot_step: float | None = None,
+                 nuisance: PhotoNuisance | None = None, device="cuda"):
+        base, _, variant = scene.partition("_")
+        if base not in _SCENES or variant not in ("", "chroma", "photo"):
+            raise ValueError(f"unknown synthetic scene '{scene}' (have "
+                             f"{sorted(_SCENES)} x ['', '_chroma', '_photo'])")
+        if nuisance is None and variant == "photo":
+            nuisance = PHOTO_NUISANCE
         self.device = torch.device(device)
-        self.scene = _SCENES[scene](img_size=img_size, seed=seed, device=self.device)
+        self.scene = _SCENES[base](img_size=img_size, seed=seed,
+                                   chroma=variant in ("chroma", "photo"),
+                                   device=self.device)
         kw = {} if rot_step is None else {"rot_step": rot_step}
         self.poses = self.scene.trajectory(n_frames, step=step, **kw)   # numpy
         self._poses_dev = torch.as_tensor(self.poses, device=self.device)
         self.fps = fps
         self.intrinsics = self.scene.K
         self.img_size = tuple(img_size)
+        self.is_live = False
         self.save_traj_name = "synthetic"
+
+        self.nuisance = nuisance
+        if nuisance is not None:
+            rng = np.random.default_rng(seed + 77)
+            aff = np.zeros((n_frames, 2), np.float32)
+            for t in range(1, n_frames):
+                aff[t, 0] = (nuisance.ar_decay * aff[t - 1, 0]
+                             + nuisance.exposure_jitter * rng.normal())
+                aff[t, 1] = (nuisance.ar_decay * aff[t - 1, 1]
+                             + nuisance.bias_jitter * rng.normal())
+            self.gt_aff = aff
+            h, w = self.img_size
+            ys, xs = np.meshgrid(np.arange(h) - (h - 1) / 2,
+                                 np.arange(w) - (w - 1) / 2, indexing="ij")
+            r2 = (ys ** 2 + xs ** 2) / (((h - 1) / 2) ** 2 + ((w - 1) / 2) ** 2)
+            self._vmap = _f32(1.0 - nuisance.vignette * r2, self.device)
+            self._noise_seed = seed + 177
+            self._noise_gen = torch.Generator()
 
     def __len__(self):
         return self.poses.shape[0]
 
     def __getitem__(self, idx):
         rgb, _ = self.scene.render(self._poses_dev[idx])
+        if self.nuisance is not None:
+            self._noise_gen.manual_seed(self._noise_seed * 1_000_003 + int(idx))
+            rgb = _apply_nuisance(rgb, self.gt_aff[idx, 0], self.gt_aff[idx, 1],
+                                  self._vmap, self._noise_gen, self.nuisance.noise_sigma)
         return idx / self.fps, rgb
 
     def gt_pose(self, idx):
         return self.poses[idx]
+
+    def gt_affine(self, idx):
+        """Ground-truth (log-gain, bias) applied to frame idx (zeros for
+        clean worlds)."""
+        if self.nuisance is None:
+            return np.zeros(2, np.float32)
+        return self.gt_aff[idx]
 
     def gt_depth(self, idx):
         return self.scene.render(self._poses_dev[idx])[1]

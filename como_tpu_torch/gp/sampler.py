@@ -128,6 +128,23 @@ def greedy_entropy_loop(domain_norm, e_domain, domain_valid, curr_norm, curr_e,
                          valid=sel_valid, is_new=is_new), obs_info, var, min_dist_sq
 
 
+def random_uniform_sample(generator, domain_valid: torch.Tensor, num_slots: int):
+    """Uniform anchor sampling without replacement over the valid domain
+    sites (sampling.mode "random_uniform"): Gumbel top-k.  Returns (S,)
+    int64 indices + validity (false where there are fewer valid sites than
+    slots).  `generator` is a CPU torch.Generator (None: seed 0), so a draw
+    does not depend on the device; the draws are not those of the JAX
+    package's PRNG, only their distribution is."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    D = domain_valid.shape[0]
+    u = torch.rand(D, generator=generator).clamp_(min=torch.finfo(torch.float32).tiny)
+    g = -torch.log(-torch.log(u)).to(domain_valid.device)
+    score = torch.where(domain_valid, g, torch.full_like(g, float("-inf")))
+    idx = torch.topk(score, num_slots).indices
+    return idx, domain_valid[idx]
+
+
 def full_image_domain(cov_img: torch.Tensor, border: int = 0):
     """Domain arrays of a packed (3, H, W) covariance image: normalized
     coords, packed covs, border-validity mask, rc coords."""

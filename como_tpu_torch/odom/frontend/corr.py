@@ -75,10 +75,14 @@ def _corr_errors(z_a, z_b, pix_xy, K, mode: str):
 def track_and_init(pose1, pose2, pm1_xy, logzm1, depth_img1, cov_img2, K, scale,
                    M: int, cfg: CorrStatic, generator=None) -> CorrResult:
     """cfg: CorrStatic thresholds; depth_img1 (H, W).  `generator` is the
-    counterpart of the JAX PRNG key: only random_uniform sampling (not
-    ported) would read it."""
-    if cfg.sample_mode != "greedy_conditional_entropy":
-        raise NotImplementedError("sampling.mode random_uniform is not ported yet")
+    counterpart of the JAX PRNG key (a CPU torch.Generator, None: seed 0):
+    only random_uniform sampling reads it, first for the tracked anchors,
+    then for the new ones."""
+    if cfg.sample_mode not in ("greedy_conditional_entropy", "random_uniform"):
+        raise ValueError(f"unknown sample_mode '{cfg.sample_mode}'")
+    random_mode = cfg.sample_mode == "random_uniform"
+    if random_mode and generator is None:
+        generator = torch.Generator().manual_seed(0)
     H, W = depth_img1.shape
     dtype, dev = depth_img1.dtype, depth_img1.device
     Tji = lie.invert_se3(pose2) @ pose1
@@ -146,13 +150,18 @@ def track_and_init(pose1, pose2, pm1_xy, logzm1, depth_img1, cov_img2, K, scale,
     zM3 = torch.zeros((M, 3), dtype=dtype, device=dev)
     zMb = torch.zeros((M,), dtype=torch.bool, device=dev)
     zM = torch.zeros((M,), dtype=dtype, device=dev)
-    res_keep = sampler.greedy_entropy_sample(
-        coords_m_norm, e_m, cand, zM2, zM3, zMb, zM, signal_var=scale,
-        fixed_var=cfg.fixed_var, max_stdev_thresh=cfg.max_stdev_thresh,
-        dist_thresh=cfg.dist_thresh, num_slots=M, terminate_early=True)
-    keep_idx = torch.where(res_keep.is_new, res_keep.domain_inds,
-                           torch.zeros_like(res_keep.domain_inds)).clamp(0, M - 1)
-    n_keep = res_keep.is_new.sum()
+    if random_mode:
+        keep_idx, keep_valid = sampler.random_uniform_sample(generator, cand, M)
+        keep_idx = torch.where(keep_valid, keep_idx, torch.zeros_like(keep_idx))
+        n_keep = keep_valid.sum()
+    else:
+        res_keep = sampler.greedy_entropy_sample(
+            coords_m_norm, e_m, cand, zM2, zM3, zMb, zM, signal_var=scale,
+            fixed_var=cfg.fixed_var, max_stdev_thresh=cfg.max_stdev_thresh,
+            dist_thresh=cfg.dist_thresh, num_slots=M, terminate_early=True)
+        keep_idx = torch.where(res_keep.is_new, res_keep.domain_inds,
+                               torch.zeros_like(res_keep.domain_inds)).clamp(0, M - 1)
+        n_keep = res_keep.is_new.sum()
 
     tracked_slot = torch.arange(M, device=dev) < n_keep
     src_anchor = torch.where(tracked_slot, keep_idx, torch.full_like(keep_idx, -1))
@@ -163,16 +172,24 @@ def track_and_init(pose1, pose2, pm1_xy, logzm1, depth_img1, cov_img2, K, scale,
     # -- fill remaining slots with new anchors over the full image --------
     dom_norm, e_dom, dom_valid, dom_rc = sampler.full_image_domain(cov_img2,
                                                                    border=cfg.border)
-    res_new = sampler.greedy_entropy_sample(
-        dom_norm, e_dom, dom_valid, coords_tr_norm, e_tr, tracked_slot, zM,
-        signal_var=scale, fixed_var=cfg.fixed_var,
-        max_stdev_thresh=cfg.max_stdev_thresh, dist_thresh=cfg.dist_thresh,
-        num_slots=M, terminate_early=False)
-    new_domain_inds = res_new.domain_inds.clamp(0, H * W - 1)
-    new_slot = res_new.is_new
-    coords_all_norm = torch.where(tracked_slot[:, None], coords_tr_norm,
-                                  res_new.coords_norm)
-    e_all = torch.where(tracked_slot[:, None], e_tr, res_new.covs)
+    if random_mode:
+        new_idx, new_valid = sampler.random_uniform_sample(generator, dom_valid, M)
+        new_domain_inds = torch.where(new_valid, new_idx, torch.zeros_like(new_idx))
+        new_slot = ~tracked_slot & new_valid
+        coords_all_norm = torch.where(tracked_slot[:, None], coords_tr_norm,
+                                      dom_norm[new_domain_inds])
+        e_all = torch.where(tracked_slot[:, None], e_tr, e_dom[new_domain_inds])
+    else:
+        res_new = sampler.greedy_entropy_sample(
+            dom_norm, e_dom, dom_valid, coords_tr_norm, e_tr, tracked_slot, zM,
+            signal_var=scale, fixed_var=cfg.fixed_var,
+            max_stdev_thresh=cfg.max_stdev_thresh, dist_thresh=cfg.dist_thresh,
+            num_slots=M, terminate_early=False)
+        new_domain_inds = res_new.domain_inds.clamp(0, H * W - 1)
+        new_slot = res_new.is_new
+        coords_all_norm = torch.where(tracked_slot[:, None], coords_tr_norm,
+                                      res_new.coords_norm)
+        e_all = torch.where(tracked_slot[:, None], e_tr, res_new.covs)
 
     # -- conditional distill for the new anchors --------------------------
     K_mm2, K_nm2, _ = predictor.kernel_matrices(coords_all_norm, e_all,

@@ -164,11 +164,13 @@ def _corr_and_prep(pose_last, pose_init, pm_last, logzm_last, Knm_full_last, rgb
 
 def sample_initial_anchors(cov_img, scale, M: int, border: int, dist_thresh: float,
                            stdev_thresh: float, fixed_var: float,
-                           mode: str = "greedy_conditional_entropy"):
-    """(M, 2) row/col anchor coords by greedy conditional entropy."""
-    if mode != "greedy_conditional_entropy":
-        raise NotImplementedError("sampling.mode random_uniform is not ported yet")
+                           mode: str = "greedy_conditional_entropy", generator=None):
+    """(M, 2) row/col anchor coords, by greedy conditional entropy or
+    (sampling.mode "random_uniform", reading `generator`) uniformly."""
     dom_norm, e_dom, dom_valid, dom_rc = sampler.full_image_domain(cov_img, border)
+    if mode == "random_uniform":
+        idx, _ = sampler.random_uniform_sample(generator, dom_valid, M)
+        return dom_rc[idx]
     dtype, dev = dom_norm.dtype, dom_norm.device
     res = sampler.greedy_entropy_sample(
         dom_norm, e_dom, dom_valid,
@@ -211,7 +213,8 @@ class Mapping:
         self.ow_ts: List[float] = []
         self.num_kf = 0
         self.num_ow = 0
-        self.prior = DepthCovPrior(mode=cfg.prior, model_path=cfg.model_path)
+        self.prior = DepthCovPrior(mode=cfg.prior, model_path=cfg.model_path,
+                                   device=self.device)
         self.scale = self.prior.scale
         self.corr_cfg = corr_mod.CorrStatic(
             corr_thresh=cfg.corr.corr_thresh, min_obs_depth=cfg.corr.min_obs_depth,
@@ -257,7 +260,8 @@ class Mapping:
             coords_m_rc = sample_initial_anchors(
                 cov_img, self.scale, self.dims.M, cfg.sampling.border,
                 cfg.sampling.dist_thresh, cfg.sampling.max_stdev_thresh,
-                cfg.sampling.fixed_var, mode=cfg.sampling.mode)
+                cfg.sampling.fixed_var, mode=cfg.sampling.mode,
+                generator=torch.Generator().manual_seed(0))
             ref = sfm_mod.setup_reference(rgb, cov_img, coords_m_rc, self.K,
                                           self.scale, cfg.init.start_level,
                                           cfg.init.end_level)
@@ -321,7 +325,8 @@ class Mapping:
         res, prep, Pw_new = _corr_and_prep(
             st.kf_pose[last], pose_init, st.pm[last], st.logzm[last],
             st.Knm_full[last], rgb, cov_img, self.K, self.scale, self.dims.M,
-            self.corr_cfg, self.dims.NW, self.img_size, None, self.C)
+            self.corr_cfg, self.dims.NW, self.img_size,
+            torch.Generator().manual_seed(len(self.kf_ts) + len(self.ow_ts)), self.C)
         host = torch.stack([res.tracked.to(torch.int64), res.src_anchor])
         return dict(rgb=rgb, pose_init=pose_init, aff_init=aff_init, ts=timestamp,
                     cov_img=cov_img, res=res, prep=prep, Pw_new=Pw_new,

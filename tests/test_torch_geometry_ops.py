@@ -26,6 +26,7 @@ from como_tpu_torch.ops import interp as tinterp
 from como_tpu_torch.ops import linalg as tlinalg
 from como_tpu_torch.ops import reduce as treduce
 from como_tpu_torch.ops.coords import fill_image as tfill
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -11,6 +11,7 @@ from como_tpu.odom.backend import gn_step as jgn
 from como_tpu.utils.demo import make_demo_state
 from como_tpu_torch.odom import window as twin
 from como_tpu_torch.odom.backend import gn_step as tgn
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 SIGMAS = dict(occlusion_thresh=0.1)
 

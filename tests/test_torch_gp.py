@@ -23,6 +23,7 @@ from como_tpu_torch.gp import kernels as tkernels
 from como_tpu_torch.gp import kernels_cuda, sampler_cuda
 from como_tpu_torch.gp import predictor as tpred
 from como_tpu_torch.gp import sampler as tsampler
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 
 def _t(a):

@@ -2,6 +2,7 @@
 neither jax nor como_tpu.  A subprocess, because tests/conftest.py has
 already imported jax into this one."""
 
+import ast
 import inspect
 import pkgutil
 import subprocess
@@ -9,6 +10,7 @@ import sys
 from pathlib import Path
 
 import como_tpu_torch
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -20,7 +22,7 @@ def _modules():
 
 def test_no_jax_in_port():
     mods = _modules()
-    assert len(mods) > 25
+    assert len(mods) > 45
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
@@ -32,15 +34,60 @@ def test_no_jax_in_port():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_import_rule():
+    """The package imports torch, numpy, yaml, the standard library and
+    itself; cv2 and pyrealsense2 only inside data/datasets.py (the probe
+    under tools/ also borrows the timing helpers of chip_smoke.py)."""
+    allowed = {"torch", "numpy", "yaml", "como_tpu_torch"}
+    only_in = {"data/datasets.py": {"cv2", "pyrealsense2"},
+               "tools/cross_cov_probe.py": {"chip_smoke"}}
+    pkg = Path(como_tpu_torch.__file__).parent
+    files = sorted(pkg.rglob("*.py"))
+    assert len(files) > 45
+    for f in files:
+        roots = set()
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots.add(node.module.split(".")[0])
+        extra = roots - allowed - set(sys.stdlib_module_names)
+        ok = only_in.get(f.relative_to(pkg).as_posix(), set())
+        assert extra <= ok, f"{f.relative_to(pkg)} imports {sorted(extra - ok)}"
+
+
 def test_entry_points_default_to_cuda():
+    from como_tpu_torch import cli
+    from como_tpu_torch.data.datasets import get_dataset
     from como_tpu_torch.data.synthetic import SyntheticDataset
+    from como_tpu_torch.net.depthcov import DepthCovPrior, load_params
     from como_tpu_torch.odom.mapping import Mapping
     from como_tpu_torch.odom.tracking import Tracking
     from como_tpu_torch.runtime.seq import ComoSeq
+    from como_tpu_torch.utils.checkpoint import load_mapping_state
 
-    for fn in (ComoSeq.__init__, Mapping.__init__, SyntheticDataset.__init__):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for fn in (ComoSeq.__init__, Mapping.__init__, SyntheticDataset.__init__, get_dataset,
+               DepthCovPrior.__init__, load_params, load_mapping_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert Tracking.__dataclass_fields__["device"].default == "cuda"
+    assert '"--device", type=str, default="cuda"' in inspect.getsource(cli.main)
+
+
+def test_mapping_passes_its_device_to_the_prior():
+    """A Mapping on the CPU builds its prior (and the UNet's parameters)
+    on the CPU, not on the prior's default device."""
+    import numpy as np
+
+    from como_tpu_torch.config import ComoConfig
+    from como_tpu_torch.odom.mapping import Mapping
+
+    cfg = ComoConfig()
+    cfg.img_size = [48, 64]
+    cfg.mapping.prior = "unet"
+    m = Mapping(cfg.mapping, np.eye(3, dtype=np.float32), (48, 64), device="cpu")
+    m.setup()
+    assert m.prior.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in m.prior.unet.parameters())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

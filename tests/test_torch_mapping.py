@@ -16,6 +16,7 @@ from como_tpu.utils.demo import anchor_grid
 from como_tpu_torch.net.depthcov import DepthCovPrior as TPrior
 from como_tpu_torch.odom import mapping as tmap
 from como_tpu_torch.odom.frontend import corr as tcorr
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 IMG = (48, 64)
 M = 16

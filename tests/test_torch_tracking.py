@@ -14,6 +14,7 @@ from como_tpu.ops import image as jimg
 from como_tpu_torch.odom import tracking as ttr
 from como_tpu_torch.odom.frontend import tracking_kernels as ttk
 from como_tpu_torch.ops import image as timg
+import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 IMG = (48, 64)
 
