@@ -6,6 +6,8 @@
 Phases, in this order, one JSON line each:
   device     nvidia-smi card line, torch / CUDA versions
   build      compile the hand-written CUDA kernels (csrc/*.cu), seconds
+  queues     compile the native queue ring (native/como_runtime.cpp, g++) and
+             check that runtime.queues.make_queue hands it out
   kernel     each kernel against its plain PyTorch version at main-path
              shapes (inputs from a rendered 192x256 clutter frame): max
              abs/rel error, kernel / plain time, bound.  One line for the
@@ -21,14 +23,27 @@ Phases, in this order, one JSON line each:
   main_path  ComoSeq on 120 clutter frames at 192x256 with configs/como.yml:
              frames, KF/OW counts, ATE, FPS, latencies, kernel launches
              (the cross-covariance's also by shape)
-  cli        como_tpu_torch.cli.main on 60 clutter frames with
+  cli        como_tpu_torch.cli.main on 45 clutter frames with
              configs/como_unet.yml (the UNet prior in bf16), no --device: the
              trajectory file parses, frames / keyframes / ATE, both kernels
              launched
-  rgb        ComoSeq on 25 plane_chroma frames with color: rgb in tracking
+  rgb        ComoSeq on 15 plane_chroma frames with color: rgb in tracking
              and mapping: ATE under the plane guard, both kernels launched
+  pipeline   como_tpu_torch.cli.main --runtime pipeline (ComoPipeline: two
+             stage threads over the native ring) on 60 clutter frames, default
+             config, no --device: trajectory file, frames / keyframes / ATE,
+             FPS, poses dropped by pose_q, per-thread CPU share, both kernels
+             launched
+  pipeline_plane  ComoPipeline on the 25-frame plane sequence: the pipeline's
+             accuracy guard (ATE < PLANE_ATE_GUARD_M)
+  runtimes   ComoSeq on the same plane sequence with dispatch_depth 2 +
+             frame_batch 2 and with dispatch_depth 2 + resolve_stride 2 (each
+             twice, bitwise equal), and with tracking.device cuda:0 /
+             mapping.device cuda:1 (the unfused step; on one card its poses
+             equal the plane phase's bit for bit): ATE under the guard, one
+             pose per frame from the bootstrap on, both kernels launched
   layers     one GN iteration and one frame's tracking on the final window
-  profile    device time by kernel over a few more frames, idle share
+  profile    device time by kernel over two more frames, idle share
   determinism two GN steps on the final full-size window: bitwise equal
   total      seconds the script took
 Then the kernel table line {"kernels": [...]}, the nvidia-smi card line,
@@ -65,12 +80,22 @@ PLANE_ATE_GUARD_M = 0.02
 # within UNET_F32_TOL (abs, rel); bf16 convolutions within the bf16 floor
 # (median relative difference, max abs), which is what JAX's own bf16 run
 # differs from its f32 run by (tests/test_torch_unet.py).
+# Depths of two earlier paths, cut (from 60 and 25 frames) when the runtime
+# phases were added, to keep the whole script well inside its time limit on a
+# slow host; both still bootstrap and insert keyframes.
+CLI_FRAMES = 45
+RGB_FRAMES = 15
 UNET_F32_TOL = (5e-4, 1e-3)
 UNET_BF16_FLOOR = (2e-2, 0.5)
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; `at_s` is the script's clock when the phase ended."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - T_START, 1), **kw}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -225,6 +250,20 @@ def main() -> int:
     info = cuda_lib.build()
     (OUT / "chip_smoke_ptxas.txt").write_text(json.dumps(info.get("ptxas", {}), indent=1))
     emit("build", seconds=round(time.perf_counter() - t0, 3), compiled=info["compiled"])
+
+    # ---- 2b. queues: the native ring of the pipeline runtime ----------------
+    from como_tpu_torch.runtime import queues
+
+    q = queues.make_queue(4)
+    for i in range(6):
+        q.push(i, block=False)                       # drop-stale: 2..5 remain
+    ring_ok = (q.pop(timeout=1.0), q.pop_until_latest(), q.qsize()) == (2, 5, 0)
+    emit("queues", queue=type(q).__name__, build_seconds=queues.build_info.get("seconds"),
+         compiled=queues.build_info.get("compiled"), semantics_ok=ring_ok,
+         library=str(Path(queues.build_info.get("path", "")).relative_to(HERE))
+         if queues.build_info.get("path") else None)
+    if type(q).__name__ != "NativeQueue" or not ring_ok:
+        raise SystemExit("make_queue did not return a working native ring")
 
     from como_tpu_torch.config import load_config
     from como_tpu_torch.data.synthetic import SyntheticDataset
@@ -381,6 +420,7 @@ def main() -> int:
     torch.cuda.synchronize()
     plane_ate = ate_m(eng_p, ds_p)
     plane_launches, _ = read_launches()
+    plane_ts, plane_poses = list(eng_p.timestamps), eng_p.poses_numpy()
     emit("plane", frames=len(ds_p), frames_tracked=len(eng_p.timestamps),
          num_kf=eng_p.mapping.num_kf, num_ow=eng_p.mapping.num_ow, ate_m=plane_ate,
          guard_m=PLANE_ATE_GUARD_M, launches=plane_launches,
@@ -389,7 +429,7 @@ def main() -> int:
         raise SystemExit(f"a kernel was not launched in the plane phase: {plane_launches}")
     if not plane_ate < PLANE_ATE_GUARD_M:
         raise SystemExit(f"plane ATE {plane_ate:.4f} m exceeds the {PLANE_ATE_GUARD_M} m guard")
-    del eng_p, ds_p
+    del eng_p
 
     # ---- 6. main_path: ComoSeq, 120 clutter frames -------------------------
     eng = ComoSeq(cfg, ds.intrinsics, (H, W), device="cuda")
@@ -453,7 +493,7 @@ def main() -> int:
     # ---- 7. cli: the product surface with the learned prior -----------------
     # como_tpu_torch.cli.main in this process, no --device (it must land on
     # the card), full width: 192x256, default window, the shipped UNet with
-    # bf16 convolutions, on the first 60 frames of the main path's sequence.
+    # bf16 convolutions, on the first CLI_FRAMES frames of the main path's sequence.
     from como_tpu_torch import cli
     from como_tpu_torch.odom.mapping import Mapping
 
@@ -481,7 +521,7 @@ def main() -> int:
         with contextlib.redirect_stdout(io.StringIO()) as cli_stdout:
             eng_c = cli.main(["--dataset_type", "synthetic:clutter",
                               "--config", str(HERE / "configs" / "como_unet.yml"),
-                              "--max_frames", "60", "--save_traj", str(cli_dir)])
+                              "--max_frames", str(CLI_FRAMES), "--save_traj", str(cli_dir)])
     finally:
         Mapping.add_keyframe, DepthCovPrior.cov_params = add_kf_orig, cov_orig
     cli_seconds = time.perf_counter() - t0
@@ -495,7 +535,8 @@ def main() -> int:
     cli_finite = bool(np.isfinite(c_poses).all())
     cli_ate = ate_rmse(c_poses, ds.poses[c_idx], with_scale=True) if cli_finite else None
     mc = eng_c.mapping
-    emit("cli", output_line=cli_line, trajectory=str(traj.relative_to(HERE)), frames=60,
+    emit("cli", output_line=cli_line, trajectory=str(traj.relative_to(HERE)),
+         frames=CLI_FRAMES,
          frames_with_pose=len(c_ts), num_kf=mc.num_kf, num_ow=mc.num_ow,
          kf_insertions=len(cli_kf_ms), ate_m=cli_ate, fps=float(fps_m.group(1)),
          seconds_with_setup=cli_seconds,
@@ -508,8 +549,8 @@ def main() -> int:
         raise SystemExit("the CLI did not run the UNet prior on the card")
     if not cli_finite:
         raise SystemExit("the CLI's trajectory holds non-finite poses")
-    if len(c_ts) < 50:
-        raise SystemExit(f"the CLI's trajectory holds {len(c_ts)} of 60 frames")
+    if len(c_ts) < CLI_FRAMES - 10:
+        raise SystemExit(f"the CLI's trajectory holds {len(c_ts)} of {CLI_FRAMES} frames")
     if mc.num_kf < 3:
         raise SystemExit(f"the CLI run ended with {mc.num_kf} keyframes, expected >= 3")
     if min(cli_launches.values()) <= 0:
@@ -521,7 +562,7 @@ def main() -> int:
     # ---- 8. rgb: color: rgb in tracking and mapping --------------------------
     cfg_rgb = load_config(str(HERE / "configs" / "como.yml"),
                           {"tracking": {"color": "rgb"}, "mapping": {"color": "rgb"}})
-    ds_r = SyntheticDataset(n_frames=25, img_size=(H, W), seed=0, scene="plane_chroma",
+    ds_r = SyntheticDataset(n_frames=RGB_FRAMES, img_size=(H, W), seed=0, scene="plane_chroma",
                             step=0.012, device=dev)
     eng_r = ComoSeq(cfg_rgb, ds_r.intrinsics, (H, W), device="cuda")
     eng_r.setup()
@@ -543,6 +584,155 @@ def main() -> int:
         raise SystemExit(f"rgb ATE {rgb_ate:.4f} m exceeds the {PLANE_ATE_GUARD_M} m guard")
     del eng_r, ds_r
 
+    # ---- 8b. pipeline: the second runtime through the product surface --------
+    # cli.main --runtime pipeline in this process, no --device, default
+    # config, on the first 60 frames of the main path's sequence.  The run
+    # is not deterministic (two threads), so it is held to the lost-tracker
+    # checks of the clutter runs above; pipeline_plane below is its accuracy
+    # guard.
+    from como_tpu_torch.runtime.pipeline import ComoPipeline
+
+    pipe_dir = OUT / "pipeline"
+    pipe_traj = pipe_dir / "synthetic.txt"
+    pipe_traj.unlink(missing_ok=True)
+    pipe_inserts = []
+
+    def pipe_add_keyframe(self, *a):
+        pipe_inserts.append(a[-1])
+        add_kf_orig(self, *a)
+
+    Mapping.add_keyframe = pipe_add_keyframe
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as pipe_stdout:
+            eng_pl = cli.main(["--dataset_type", "synthetic:clutter", "--runtime", "pipeline",
+                               "--max_frames", "60", "--save_traj", str(pipe_dir)])
+    finally:
+        Mapping.add_keyframe = add_kf_orig
+    pipe_seconds = time.perf_counter() - t0
+    pipe_launches, pipe_by_shape = read_launches()
+    pipe_line = pipe_stdout.getvalue().strip().splitlines()[-1]
+    fps_p = re.search(r"\(([0-9.]+) FPS\)", pipe_line)
+    if not pipe_traj.is_file() or fps_p is None:
+        raise SystemExit(f"the pipeline CLI wrote no trajectory or no summary line: {pipe_line!r}")
+    p_ts, p_poses = read_tum(pipe_traj)
+    p_idx = np.round(p_ts * ds.fps).astype(int)
+    pipe_finite = bool(np.isfinite(p_poses).all())
+    pipe_ate = ate_rmse(p_poses, ds.poses[p_idx], with_scale=True) if pipe_finite else None
+    mp = eng_pl.mapping
+    threads_ended = not any(t.is_alive() for t in eng_pl._threads)
+    on_card = bool(eng_pl.tracking.T_curr_kf.is_cuda and eng_pl.tracking.levels[-1].vals.is_cuda
+                   and mp.state.kf_pose.is_cuda)
+    emit("pipeline", output_line=pipe_line, trajectory=str(pipe_traj.relative_to(HERE)),
+         engine=type(eng_pl).__name__, queue=type(eng_pl.rgb_q).__name__, frames=60,
+         frames_with_pose=len(p_ts), frames_tracked=eng_pl.frames_tracked,
+         poses_dropped=eng_pl.poses_dropped, num_kf=mp.num_kf, num_ow=mp.num_ow,
+         kf_insertions=len(pipe_inserts), total_gn_iters=mp.total_iters, ate_m=pipe_ate,
+         fps=float(fps_p.group(1)), fps_cli_seq=float(fps_m.group(1)), fps_main_path=fps,
+         seconds_with_setup=pipe_seconds,
+         stage_cpu_and_wall_seconds={k: list(v) for k, v in eng_pl.stage_seconds.items()},
+         stage_cpu_share={k: v[0] / v[1] for k, v in eng_pl.stage_seconds.items()},
+         stage_devices=[str(eng_pl.track_dev), str(eng_pl.map_dev)],
+         threads_ended=threads_ended, tensors_on_card=on_card, launches=pipe_launches,
+         cross_covariance_launches_by_shape=pipe_by_shape, poses_finite=pipe_finite)
+    if not isinstance(eng_pl, ComoPipeline) or type(eng_pl.rgb_q).__name__ != "NativeQueue":
+        raise SystemExit("--runtime pipeline did not run ComoPipeline over the native ring")
+    if not (threads_ended and on_card and len(eng_pl.stage_seconds) == 2):
+        raise SystemExit("the stage threads did not both run on the card and end")
+    if not pipe_finite:
+        raise SystemExit("the pipeline's trajectory holds non-finite poses")
+    if len(p_ts) < 40:
+        raise SystemExit(f"the pipeline's trajectory holds {len(p_ts)} of 60 frames")
+    if not 3 <= mp.num_kf <= 8:
+        raise SystemExit(f"the pipeline run ended with {mp.num_kf} keyframes, expected 3 to 8")
+    if min(pipe_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the pipeline phase: {pipe_launches}")
+    if not pipe_ate < 0.5:      # a lost-tracker check, as on the main path
+        raise SystemExit(f"pipeline ATE {pipe_ate:.4f} m exceeds 0.5 m: the tracker is lost")
+    del eng_pl, mp
+
+    # ---- 8c. pipeline_plane: the pipeline's accuracy guard --------------------
+    eng_pp = ComoPipeline(cfg, ds_p.intrinsics, (H, W))
+    eng_pp.setup()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(len(ds_p)):
+        ts, rgb = ds_p[i]
+        eng_pp.step(float(ts), rgb)
+    eng_pp.shutdown(timeout=120.0)
+    torch.cuda.synchronize()
+    pp_seconds = time.perf_counter() - t0
+    pp_ate = ate_m(eng_pp, ds_p)
+    pp_launches, _ = read_launches()
+    emit("pipeline_plane", frames=len(ds_p), frames_with_pose=len(eng_pp.timestamps),
+         frames_tracked=eng_pp.frames_tracked, poses_dropped=eng_pp.poses_dropped,
+         num_kf=eng_pp.mapping.num_kf, num_ow=eng_pp.mapping.num_ow,
+         total_gn_iters=eng_pp.mapping.total_iters, ate_m=pp_ate, guard_m=PLANE_ATE_GUARD_M,
+         ate_m_plane_seq=plane_ate, launches=pp_launches, seconds=pp_seconds,
+         stage_cpu_share={k: v[0] / v[1] for k, v in eng_pp.stage_seconds.items()})
+    if min(pp_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the pipeline_plane phase: {pp_launches}")
+    if len(eng_pp.timestamps) < 10:
+        raise SystemExit(f"pipeline_plane recorded only {len(eng_pp.timestamps)} poses")
+    if not pp_ate < PLANE_ATE_GUARD_M:
+        raise SystemExit(f"pipeline_plane ATE {pp_ate:.4f} m exceeds the "
+                         f"{PLANE_ATE_GUARD_M} m guard")
+    del eng_pp
+
+    # ---- 8d. runtimes: ComoSeq's batched, strided and split dispatch ----------
+    frame_ts = [float(ds_p[i][0]) for i in range(len(ds_p))]
+    rt_launches, rt_report = {}, {}
+    for name, overrides, repeats in (
+            ("batched", {"dispatch_depth": 2, "frame_batch": 2}, 2),
+            ("strided", {"dispatch_depth": 2, "resolve_stride": 2}, 2),
+            ("split", {"tracking": {"device": "cuda:0"}, "mapping": {"device": "cuda:1"}}, 1)):
+        cfg_rt = load_config(str(HERE / "configs" / "como.yml"), overrides)
+        outs = []
+        for _ in range(repeats):
+            eng_rt = ComoSeq(cfg_rt, ds_p.intrinsics, (H, W), device="cuda")
+            eng_rt.setup()
+            reset_launches()
+            t0 = time.perf_counter()
+            eng_rt.run(ds_p)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rt_launches[name], _ = read_launches()
+            outs.append((list(eng_rt.timestamps), eng_rt.poses_numpy()))
+        rt_ts, rt_poses = outs[0]
+        rt_ate = ate_m(eng_rt, ds_p)
+        one_pose_per_frame = rt_ts == frame_ts[len(frame_ts) - len(rt_ts):]
+        repeat_equal = all(o[0] == rt_ts and np.array_equal(o[1], rt_poses) for o in outs[1:])
+        rt_report[name] = dict(
+            frames_tracked=len(rt_ts), num_kf=eng_rt.mapping.num_kf,
+            num_ow=eng_rt.mapping.num_ow, total_gn_iters=eng_rt.mapping.total_iters,
+            ate_m=rt_ate, seconds=seconds, fps=len(ds_p) / seconds,
+            one_pose_per_frame=one_pose_per_frame, runs=repeats,
+            repeat_bitwise_equal=repeat_equal if repeats > 1 else None,
+            split_devices=eng_rt.split_devices,
+            stage_devices=[str(eng_rt.track_dev), str(eng_rt.map_dev)],
+            launches=rt_launches[name])
+        if name == "split":
+            rt_report[name]["equals_plane_phase_bitwise"] = bool(
+                rt_ts == plane_ts and np.array_equal(rt_poses, plane_poses))
+        del eng_rt
+    emit("runtimes", guard_m=PLANE_ATE_GUARD_M, frames=len(ds_p), ate_m_plane_seq=plane_ate,
+         **rt_report)
+    for name, r in rt_report.items():
+        if min(r["launches"].values()) <= 0:
+            raise SystemExit(f"a kernel was not launched in the {name} run: {r['launches']}")
+        if not r["ate_m"] < PLANE_ATE_GUARD_M:
+            raise SystemExit(f"{name} ATE {r['ate_m']:.4f} m exceeds the guard")
+        if not r["one_pose_per_frame"] or r["frames_tracked"] < 15:
+            raise SystemExit(f"{name}: not one pose per frame from the bootstrap on")
+        if r["repeat_bitwise_equal"] is False:
+            raise SystemExit(f"two {name} runs differ")
+    if not rt_report["split"]["split_devices"]:
+        raise SystemExit("the split configuration ran the fused step")
+    if not rt_report["split"]["equals_plane_phase_bitwise"]:
+        raise SystemExit("the unfused step's poses differ from the fused plane phase's")
+    del ds_p
+
     # ---- 9. layers: on the final full-size window, one GN iteration and one
     # frame's tracking
     gn_args = (m.state, *m._pairs, m.K, m.dims, m.sigmas, m.damping)
@@ -555,21 +745,23 @@ def main() -> int:
                     tr.term, tr.cfg.pyr.start_level, tr.cfg.pyr.end_level, (H, W),
                     tr.cfg.color)
 
-    track_ms = time_ms(track_once, n=5)
-    track_dev_ms, track_kernels = device_ms(track_once, n=2)
+    track_ms = time_ms(track_once, n=3, warmup=1)
+    track_dev_ms, track_kernels = device_ms(track_once, n=1, warmup=0)
     emit("layers", gn_iter_ms_median=gn_ms, gn_iter_device_ms=gn_dev_ms,
          gn_iter_kernels=gn_kernels, track_frame_ms_median=track_ms,
          track_frame_device_ms=track_dev_ms, track_frame_kernels=track_kernels)
 
-    # ---- 10. profile: device kernel time by name over a few more frames,
-    # against the unprofiled median frame time
+    # ---- 10. profile: device kernel time by name over two more frames,
+    # against the unprofiled median frame time.  CUDA activities only: with
+    # CPU activities too, recording ~48,000 operators per frame took most of
+    # this phase's 151 s (for four frames; H100 host at 1.5 s per frame).
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof_frames = [(float(ts) + 10.0 + k / ds.fps, rgb) for k, (ts, rgb)
-                   in enumerate(frames[-4:])]
+                   in enumerate(frames[-2:])]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for ts, rgb in prof_frames:
             eng.step(ts, rgb)
         eng.finish()
@@ -603,7 +795,8 @@ def main() -> int:
     for sh in cc_shapes:
         sh["launches"] = by_shape.get("{}x{}".format(*sh["shape"]), 0)
     by_path = {"plane": plane_launches, "main_path": launches, "cli": cli_launches,
-               "rgb": rgb_launches}
+               "rgb": rgb_launches, "pipeline": pipe_launches, "pipeline_plane": pp_launches,
+               **{f"runtimes_{k}": v for k, v in rt_launches.items()}}
     full = cc_shapes[0]
     table = [
         dict(name="cross_covariance", route="cuda", source="como_tpu_torch/csrc/gp_kernels.cu",

@@ -6,8 +6,9 @@
 
 The flags are those of the JAX package's CLI, plus --device (default
 "cuda").  Without a CUDA device the run fails unless --device cpu is given;
-it does not carry on on the CPU.  The pipeline runtime and the viewer are
-not ported yet and raise.
+it does not carry on on the CPU.  --runtime pipeline runs the two stage
+threads of runtime/pipeline.py; the viewer (--viz) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -16,14 +17,6 @@ import argparse
 import contextlib
 import os
 import time
-
-
-def _sleep_until(deadline: float) -> None:
-    """Sleep to an absolute time.monotonic() deadline (no per-frame drift,
-    unlike relative sleeps)."""
-    dt = deadline - time.monotonic()
-    if dt > 0:
-        time.sleep(dt)
 
 
 def main(argv=None):
@@ -54,9 +47,6 @@ def main(argv=None):
                    help="torch device of the engine: cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.runtime == "pipeline":
-        raise NotImplementedError(
-            "--runtime pipeline is not ported yet (ROADMAP §1: runtime/pipeline.py)")
     if args.viz:
         raise NotImplementedError("--viz is not ported yet (ROADMAP §1: viz/)")
 
@@ -67,15 +57,20 @@ def main(argv=None):
 
     from como_tpu_torch.config import load_config
     from como_tpu_torch.data.datasets import get_dataset
-    from como_tpu_torch.runtime.seq import ComoSeq
+    from como_tpu_torch.runtime.queues import monotonic_now, sleep_until
     from como_tpu_torch.utils import profiling
+
+    if args.runtime == "seq":
+        from como_tpu_torch.runtime.seq import ComoSeq as Engine
+    else:
+        from como_tpu_torch.runtime.pipeline import ComoPipeline as Engine
 
     cfg = load_config(args.config)
     dataset = get_dataset(args.dataset_type, cfg.img_size, args.dataset_dir,
                           device=args.device)
-    eng = ComoSeq(cfg, dataset.intrinsics, cfg.img_size, device=args.device)
+    eng = Engine(cfg, dataset.intrinsics, cfg.img_size, device=args.device)
     eng.setup()
-    if args.log:
+    if args.log and hasattr(eng, "log"):
         from como_tpu_torch.utils.log import EventLog
         eng.log = EventLog(args.log)
     if args.resume:
@@ -84,7 +79,7 @@ def main(argv=None):
 
     n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
     t_start = time.perf_counter()
-    t_pace0 = time.monotonic()
+    t_pace0 = monotonic_now()
     t0_ts = None
     with profiling.trace(args.profile) if args.profile else contextlib.nullcontext():
         for i in range(n):
@@ -92,11 +87,16 @@ def main(argv=None):
             ts = float(ts)
             if args.realtime and not dataset.is_live:
                 t0_ts = ts if t0_ts is None else t0_ts
-                _sleep_until(t_pace0 + (ts - t0_ts))
+                # absolute-deadline pacing: no per-frame drift accumulation
+                sleep_until(t_pace0 + (ts - t0_ts))
             eng.step(ts, rgb)
-        eng.finish()
+        if hasattr(eng, "finish"):
+            eng.finish()
+        if hasattr(eng, "shutdown"):
+            eng.shutdown()
         if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)
+            for d in {eng.track_dev, eng.map_dev}:
+                torch.cuda.synchronize(d)
     wall = time.perf_counter() - t_start
 
     if args.save_state:
@@ -107,7 +107,8 @@ def main(argv=None):
     name = getattr(dataset, "save_traj_name", args.dataset_type)
     out = os.path.join(args.save_traj, name + ".txt")
     eng.save_trajectory(out)
-    eng.log.close()
+    if hasattr(eng, "log"):
+        eng.log.close()
     print(f"{n} frames in {wall:.1f}s ({n / wall:.1f} FPS); trajectory -> {out}")
     return eng
 

@@ -8,10 +8,10 @@ log_depth_prior sigma_first=1e0, pixel prior sigmas 1e-2/3.33e-1,
 distill sigma_median=5e-2) are first-class fields.
 
 PyTorch port: a copy of como_tpu/config.py, so that the port loads the
-same configs/*.yml unchanged without importing the JAX package.  The
-`tracking.device` / `mapping.device` fields are read but ignored: every
-port entry point takes an explicit `device` argument (default "cuda"),
-and split-stage placement is deferred.
+same configs/*.yml unchanged without importing the JAX package.  Every
+port entry point takes an explicit `device` argument (default "cuda") that
+fixes the device type; the `tracking.device` / `mapping.device` fields
+give each stage's index on that type (runtime/placement.py).
 """
 
 from __future__ import annotations
@@ -231,11 +231,10 @@ class ComoConfig:
     # resolve the keyframe/one-way decisions of `resolve_stride`
     # dispatched frames in one burst every stride-th frame, at fixed
     # depths [dispatch_depth, dispatch_depth+stride-1] (deterministic).
-    # 1 = off, the only setting ported so far.
+    # 1 = off.
     resolve_stride: int = 1
     # 2 tracks two consecutive frames plus two mapping GN iterations per
-    # dispatch, resolving decisions in pair units.  1 = off, the only
-    # setting ported so far.
+    # dispatch, resolving decisions in pair units.  1 = off.
     frame_batch: int = 1
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     mapping: MappingConfig = field(default_factory=MappingConfig)

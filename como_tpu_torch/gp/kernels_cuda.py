@@ -106,8 +106,9 @@ def _launch(x_n, e_n, x_m, e_m, scale: float) -> torch.Tensor:
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*[cuda_lib.ptr(t) for t in ts], ctypes.c_float(scale),
-             cuda_lib.ptr(out), N, M, cuda_lib.stream_ptr(x_n.device))
+    with torch.cuda.device(x_n.device):    # the launch goes to the current device
+        err = fn(*[cuda_lib.ptr(t) for t in ts], ctypes.c_float(scale),
+                 cuda_lib.ptr(out), N, M, cuda_lib.stream_ptr(x_n.device))
     cuda_lib.check(err, "como_cross_covariance_f32")
     cross_covariance.launches += 1
     by_shape = cross_covariance.launches_by_shape

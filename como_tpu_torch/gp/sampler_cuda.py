@@ -56,9 +56,10 @@ def _launch(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni, row: int) -> None:
     fn = cuda_lib.lib("sampler_kernels").como_downdate_step_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*[cuda_lib.ptr(t) for t in (xnT, enT, obs_info, var, min_dist_sq,
-                                         sc, l_ni)],
-             S, D, row, cuda_lib.stream_ptr(obs_info.device))
+    with torch.cuda.device(obs_info.device):    # the launch goes to the current device
+        err = fn(*[cuda_lib.ptr(t) for t in (xnT, enT, obs_info, var, min_dist_sq,
+                                             sc, l_ni)],
+                 S, D, row, cuda_lib.stream_ptr(obs_info.device))
     cuda_lib.check(err, "como_downdate_step_f32")
     downdate_step.launches += 1
 

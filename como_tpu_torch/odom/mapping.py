@@ -21,7 +21,7 @@ from como_tpu_torch.gp import kernels, sampler
 from como_tpu_torch.net.depthcov import DepthCovPrior
 from como_tpu_torch.odom import window as win
 from como_tpu_torch.odom.backend import pairs as pairs_mod
-from como_tpu_torch.odom.backend.gn_step import SigmaStatic
+from como_tpu_torch.odom.backend.gn_step import SigmaStatic, _gn_step_impl
 from como_tpu_torch.odom.frontend import corr as corr_mod
 from como_tpu_torch.odom.frontend import sfm as sfm_mod
 from como_tpu_torch.ops import image as img_ops
@@ -125,6 +125,11 @@ def _finalize_kf(st, slot: int, window_full: bool, reanchor: bool, fix_mask):
         st.P_anchor_vals.copy_(st.P_lm)
 
 
+def dense_depth_image(Knm_full, logzm, hw):
+    """(H, W) depth image of one keyframe from its GP predictor."""
+    return torch.exp(Knm_full @ logzm).reshape(hw)
+
+
 def _anchors_world(pose, coords_xy, z, K):
     ray = torch.stack([(coords_xy[:, 0] - K[0, 2]) / K[0, 0],
                        (coords_xy[:, 1] - K[1, 2]) / K[1, 1],
@@ -185,6 +190,8 @@ def sample_initial_anchors(cov_img, scale, M: int, border: int, dist_thresh: flo
 
 class Mapping:
     def __init__(self, cfg: MappingConfig, intrinsics, img_size, device="cuda"):
+        if cfg.mesh_devices >= 2:
+            raise NotImplementedError("mapping.mesh_devices >= 2 is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.K = torch.as_tensor(intrinsics, dtype=torch.float32).to(self.device)
@@ -198,8 +205,6 @@ class Mapping:
         pc = cfg.photo_construction
         self._radius_mode = (pc.radius_thresh > 0.0) and (pc.degrees_thresh > 0.0)
         self.C = 3 if cfg.color == "rgb" else 1
-        if cfg.mesh_devices >= 2:
-            raise NotImplementedError("mapping.mesh_devices >= 2 is not ported yet")
         self.dims = win.make_dims(
             num_kf=cfg.graph.num_keyframes, num_ow=cfg.graph.num_one_way_frames,
             M=cfg.sampling.max_num_coords, img_size=self.img_size,
@@ -496,6 +501,17 @@ class Mapping:
         self._stats_hist.append((self.iter_count, stats))
         del self._stats_hist[:-8]
 
+    def iterate(self):
+        """One GN iteration on the window: the step the sequential engine
+        runs beside each frame's tracking, with the same bookkeeping."""
+        self.state, stats = _gn_step_impl(self.state, *self._pairs, self.K, self.dims,
+                                          self.sigmas, self.damping)
+        self.note_iteration(stats)
+        return stats
+
+    def maybe_iterate(self):
+        return self.iterate() if self.should_iterate() else None
+
     # -- data out ----------------------------------------------------------------
     def get_kf_ref_data(self, num_ref: int = 1):
         """(timestamps, rgb, pose, aff, depth) of the trailing num_ref KFs,
@@ -507,3 +523,23 @@ class Mapping:
         depth = torch.exp(logz).reshape((self.num_kf - lo,) + self.img_size)[:, None]
         return (self.kf_ts[lo:self.num_kf], st.kf_rgb[idx].clone(),
                 st.kf_pose[idx].clone(), st.kf_aff[idx].clone(), depth)
+
+    def get_kf_viz_data(self):
+        """What a viewer draws: per-keyframe images, poses, dense depths
+        and anchors, the landmarks, the one-way poses and the pair graph.
+        Tensors are cloned out of the window."""
+        st = self.state
+        n = self.num_kf
+        depth = torch.stack([dense_depth_image(st.Knm_full[i], st.logzm[i], self.img_size)
+                             for i in range(n)])[:, None]
+        pr, pt, pv = (a.cpu().numpy() for a in self._pairs)
+        kf_pairs = [(int(r), int(t)) for r, t, v in zip(pr, pt, pv)
+                    if v and t < self.dims.K]
+        ow_pairs = [(int(r), int(t) - self.dims.K) for r, t, v in zip(pr, pt, pv)
+                    if v and t >= self.dims.K]
+        return dict(timestamps=list(self.kf_ts), rgbs=st.kf_rgb[:n].clone(),
+                    poses=st.kf_pose[:n].clone(), depths=depth,
+                    sparse_pm=st.pm[:n].clone(), P_lm=st.P_lm.clone(),
+                    lm_valid=st.lm_valid.clone(), obs_ref=st.obs_ref[:n].clone(),
+                    ow_poses=st.ow_pose[: self.num_ow].clone(),
+                    kf_pairs=kf_pairs, ow_pairs=ow_pairs)

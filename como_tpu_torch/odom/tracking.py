@@ -310,3 +310,14 @@ class Tracking:
             return None
         return (frame_kind, pending["rgb"], pending["Tji"], pending["aff"],
                 pending["kf_received_ts"], timestamp)
+
+    def handle_frame(self, timestamp: float, rgb: torch.Tensor):
+        """Synchronous track-then-decide (the pipeline runtime's per-frame
+        call): ((timestamp, T_w_curr or None when lost), track_map or None)."""
+        pending = self.dispatch_frame(timestamp, rgb)
+        track_data_map = self.decide(pending)
+        T = None if pending.get("lost") else pending["T_w_curr"]
+        return (timestamp, T), track_data_map
+
+    def get_curr_world_pose(self):
+        return transforms.get_T_w_curr(self.T_w_kf[None], self.T_curr_kf[None])[0]

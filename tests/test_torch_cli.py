@@ -81,10 +81,44 @@ def test_cli_log_and_state(run, tmp_path):
     assert (tmp_path / "synthetic.txt").exists()
 
 
-@pytest.mark.parametrize("flag", [["--runtime", "pipeline"], ["--viz"]], ids=["pipeline", "viz"])
+@pytest.mark.parametrize("flag", [["--viz"]], ids=["viz"])
 def test_cli_unported_options_raise(run, flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["--dataset_type", "synthetic", "--device", "cpu", *flag])
+
+
+def test_cli_runtime_pipeline_writes_a_trajectory(run, tmp_path, capsys):
+    """--runtime pipeline on the CPU, to the end: the stage threads are
+    joined, the TUM file parses, its poses are finite and near the ground
+    truth (the pipeline's timing is not deterministic, so no pose is
+    compared with ComoSeq's), and a snapshot is written."""
+    import threading
+
+    from como_tpu_torch.runtime.pipeline import ComoPipeline
+
+    out = {}
+
+    def target():
+        out["eng"] = cli.main(["--dataset_type", "synthetic", "--device", "cpu",
+                               "--runtime", "pipeline", "--max_frames", "25",
+                               "--config", run["cfg"], "--save_traj", str(tmp_path),
+                               "--log", str(tmp_path / "events.jsonl"),
+                               "--save_state", str(tmp_path / "state.bin")])
+
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    th.join(240.0)
+    assert not th.is_alive(), "the pipeline run did not end"
+    eng = out["eng"]
+    assert isinstance(eng, ComoPipeline) and eng.mapping.is_init
+    assert not any(t.is_alive() for t in eng._threads)
+    assert "25 frames in" in capsys.readouterr().out
+    ts, poses = _read_tum(tmp_path / "synthetic.txt")
+    assert len(ts) == len(eng.timestamps) > 5 and np.all(np.isfinite(poses))
+    ds = get_dataset("synthetic", (48, 64), device="cpu")
+    idx = np.round(ts * ds.fps).astype(int)
+    assert ate_rmse(poses, ds.poses[idx], with_scale=True) < 0.05
+    assert (tmp_path / "state.bin").stat().st_size > 0
 
 
 def test_cli_defaults_to_cuda_and_fails_without_it(run):
@@ -100,10 +134,13 @@ def test_cli_defaults_to_cuda_and_fails_without_it(run):
 
 def test_cli_realtime_paces_and_profile_traces(run, tmp_path):
     import time
-    t = time.monotonic()
-    cli._sleep_until(t + 0.05)
-    assert time.monotonic() - t >= 0.05
-    cli._sleep_until(t - 1.0)                      # a past deadline returns at once
+
+    from como_tpu_torch.runtime import queues
+    t = queues.monotonic_now()                     # the pacing helpers the CLI uses
+    queues.sleep_until(t + 0.05)
+    assert queues.monotonic_now() - t >= 0.05
+    queues.sleep_until(t - 1.0)                    # a past deadline returns at once
+    assert "sleep_until(t_pace0 + (ts - t0_ts))" in inspect.getsource(cli.main)
     t0 = time.perf_counter()
     cli.main(["--dataset_type", "synthetic", "--device", "cpu", "--max_frames", "4",
               "--config", run["cfg"], "--save_traj", str(tmp_path), "--realtime",

@@ -159,3 +159,115 @@ def test_gn_step_bitwise_repeatable(cuda):
     b, sb = gn_step._gn_step_impl(st, ref, tgt, val, K, dims, gn_step.SigmaStatic())
     for f in a.fields():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# --- the runtimes on the card (48x64, 4 KF / 4 OW / 16 anchors) -----------------------
+
+def _small_cfg(**top):
+    from como_tpu_torch.config import ComoConfig
+
+    cfg = ComoConfig()
+    cfg.img_size = [48, 64]
+    cfg.mapping.graph.num_keyframes = 4
+    cfg.mapping.graph.num_one_way_frames = 4
+    cfg.mapping.sampling.max_num_coords = 16
+    cfg.mapping.sampling.border = 2
+    for k, v in top.items():
+        setattr(cfg, k, v)
+    return cfg.validate()
+
+
+def _plane(cuda, n=25, step=0.02):
+    from como_tpu_torch.data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(n_frames=n, img_size=(48, 64), seed=0, step=step, device=cuda)
+
+
+def _seq_run(cuda, cfg):
+    from como_tpu_torch.runtime.seq import ComoSeq
+
+    ds = _plane(cuda)
+    eng = ComoSeq(cfg, ds.intrinsics, (48, 64), device="cuda")
+    eng.setup()
+    ts, est = eng.run(ds)
+    return eng, ts, est
+
+
+def test_split_specs_on_one_card_equal_the_fused_step(cuda):
+    """tracking.device cuda:0 / mapping.device cuda:1 on a host with one
+    card: both stages on cuda:0, the unfused step, the fused trajectory
+    bit for bit."""
+    fe, fts, fest = _seq_run(cuda, _small_cfg())
+    cfg = _small_cfg()
+    cfg.tracking.device, cfg.mapping.device = "cuda:0", "cuda:1"
+    se, sts, sest = _seq_run(cuda, cfg)
+    assert se.split_devices and se.track_dev.type == se.map_dev.type == "cuda"
+    if torch.cuda.device_count() == 1:
+        assert se.track_dev == se.map_dev == torch.device("cuda", 0)
+        np.testing.assert_array_equal(sts, fts)
+        np.testing.assert_array_equal(sest, fest)
+    else:   # two cards: the same decisions, poses to f32 rounding
+        assert se.map_dev == torch.device("cuda", 1)
+        assert se.mapping.state.kf_pose.device == se.map_dev
+        assert se.tracking.T_curr_kf.device == se.track_dev
+        np.testing.assert_array_equal(sts, fts)
+        np.testing.assert_allclose(sest, fest, atol=1e-3)
+
+
+@pytest.mark.parametrize("option", ["frame_batch", "resolve_stride"])
+def test_seq_options_repeat_bitwise_on_the_card(cuda, option):
+    cfg = _small_cfg(dispatch_depth=2, **{option: 2})
+    _, ts1, est1 = _seq_run(cuda, cfg)
+    _, ts2, est2 = _seq_run(cuda, cfg)
+    assert len(ts1) >= 15 and np.all(np.isfinite(est1))
+    np.testing.assert_array_equal(ts1, ts2)
+    np.testing.assert_array_equal(est1, est2)
+
+
+def test_pipeline_on_the_card(cuda):
+    """ComoPipeline over the native ring with both stages on the card:
+    initialised, finite poses, threads gone; a stage that raises reaches
+    the caller."""
+    from como_tpu_torch.runtime.pipeline import ComoPipeline
+
+    ds = _plane(cuda, 20, 0.012)
+    eng = ComoPipeline(_small_cfg(), ds.intrinsics, (48, 64))
+    assert type(eng.rgb_q).__name__ == "NativeQueue"
+    eng.setup()
+    for i in range(len(ds)):
+        ts, rgb = ds[i]
+        eng.step(float(ts), rgb)
+    eng.shutdown(timeout=120.0)
+    assert eng.mapping.is_init and len(eng.est_poses) > 5
+    assert np.all(np.isfinite(eng.poses_numpy()))
+    assert eng.mapping.state.kf_pose.is_cuda and eng.tracking.T_curr_kf.is_cuda
+    assert not any(t.is_alive() for t in eng._threads)
+
+    bad = ComoPipeline(_small_cfg(), ds.intrinsics, (48, 64))
+
+    def boom(*a):
+        raise ValueError("mapping broke")
+
+    bad.mapping.attempt_two_frame_init = boom
+    bad.setup()
+    with pytest.raises(RuntimeError, match="mapping broke"):
+        for i in range(len(ds)):
+            bad.step(*ds[i])
+        bad.shutdown(timeout=10.0)
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """With two cards: a launch for tensors on cuda:1 while cuda:0 is the
+    current device (the wrappers make the tensors' device current)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from como_tpu_torch.gp import kernels_cuda
+
+    dev1 = torch.device("cuda", 1)
+    g = torch.Generator().manual_seed(5)
+    args = (*_sites(g, 700, dev1), *_sites(g, 20, dev1), 1.0)
+    with torch.cuda.device(0):
+        got = kernels_cuda.cross_covariance(*args)
+    assert got.device == dev1
+    torch.testing.assert_close(got, kernels_cuda.cross_covariance_plain(*args),
+                               rtol=1e-4, atol=1e-5)

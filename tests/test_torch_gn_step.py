@@ -1,6 +1,6 @@
-"""Port parity: the mapping GN step of como_tpu_torch against como_tpu on a
-demo window (como_tpu.utils.demo.make_demo_state), carried over with
-window.state_from_numpy (CPU)."""
+"""Port parity: the mapping GN step of como_tpu_torch against como_tpu, each
+on its own package's demo window (utils/demo.py::make_demo_state, CPU; the
+two windows are held equal in tests/test_torch_demo_factors.py)."""
 
 import numpy as np
 import pytest
@@ -8,9 +8,10 @@ import torch
 
 from como_tpu.odom import window as jwin
 from como_tpu.odom.backend import gn_step as jgn
-from como_tpu.utils.demo import make_demo_state
+from como_tpu.utils.demo import make_demo_state as jax_demo_state
 from como_tpu_torch.odom import window as twin
 from como_tpu_torch.odom.backend import gn_step as tgn
+from como_tpu_torch.utils.demo import make_demo_state as torch_demo_state
 import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 SIGMAS = dict(occlusion_thresh=0.1)
@@ -19,18 +20,17 @@ SIGMAS = dict(occlusion_thresh=0.1)
 @pytest.fixture(scope="module")
 def demo():
     dims_j = jwin.make_dims(num_kf=4, num_ow=3, M=16, img_size=(48, 64))
-    st, pairs, K = make_demo_state(dims_j, num_kf=3, num_ow=2)
+    st, pairs, K = jax_demo_state(dims_j, num_kf=3, num_ow=2)
     fields = {k: np.asarray(v) for k, v in st._asdict().items()}
     dims_t = twin.make_dims(num_kf=4, num_ow=3, M=16, img_size=(48, 64))
-    st_t = twin.state_from_numpy(fields, "cpu")
-    pairs_t = tuple(torch.as_tensor(np.array(p)).to(torch.int64 if i < 2 else torch.bool)
-                    for i, p in enumerate(pairs))
+    st_t, pairs_t, K_t = torch_demo_state(dims_t, num_kf=3, num_ow=2, device="cpu")
     return dict(st=st, pairs=pairs, K=K, dims_j=dims_j, st_t=st_t, pairs_t=pairs_t,
-                K_t=torch.as_tensor(np.asarray(K)), dims_t=dims_t, fields=fields)
+                K_t=K_t, dims_t=dims_t, fields=fields)
 
 
 def test_state_roundtrip(demo):
-    back = twin.state_to_numpy(demo["st_t"])
+    """A JAX window carried over with state_from_numpy and back."""
+    back = twin.state_to_numpy(twin.state_from_numpy(demo["fields"], "cpu"))
     for k, v in demo["fields"].items():
         np.testing.assert_array_equal(back[k], v.astype(back[k].dtype), err_msg=k)
 

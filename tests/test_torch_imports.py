@@ -22,7 +22,10 @@ def _modules():
 
 def test_no_jax_in_port():
     mods = _modules()
-    assert len(mods) > 45
+    assert len(mods) > 50
+    for new in ("runtime.queues", "runtime.placement", "runtime.pipeline", "utils.demo",
+                "odom.backend.extra_factors"):
+        assert f"como_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
@@ -43,7 +46,7 @@ def test_import_rule():
                "tools/cross_cov_probe.py": {"chip_smoke"}}
     pkg = Path(como_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py"))
-    assert len(files) > 45
+    assert len(files) > 50
     for f in files:
         roots = set()
         for node in ast.walk(ast.parse(f.read_text())):
@@ -63,11 +66,15 @@ def test_entry_points_default_to_cuda():
     from como_tpu_torch.net.depthcov import DepthCovPrior, load_params
     from como_tpu_torch.odom.mapping import Mapping
     from como_tpu_torch.odom.tracking import Tracking
+    from como_tpu_torch.runtime.pipeline import ComoPipeline
+    from como_tpu_torch.runtime.placement import resolve_device, resolve_stage_devices
     from como_tpu_torch.runtime.seq import ComoSeq
     from como_tpu_torch.utils.checkpoint import load_mapping_state
+    from como_tpu_torch.utils.demo import anchor_grid, make_demo_state
 
-    for fn in (ComoSeq.__init__, Mapping.__init__, SyntheticDataset.__init__, get_dataset,
-               DepthCovPrior.__init__, load_params, load_mapping_state):
+    for fn in (ComoSeq.__init__, ComoPipeline.__init__, resolve_device, resolve_stage_devices,
+               anchor_grid, make_demo_state, Mapping.__init__, SyntheticDataset.__init__,
+               get_dataset, DepthCovPrior.__init__, load_params, load_mapping_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert Tracking.__dataclass_fields__["device"].default == "cuda"
     assert '"--device", type=str, default="cuda"' in inspect.getsource(cli.main)

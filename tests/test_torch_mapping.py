@@ -12,10 +12,11 @@ from como_tpu.geometry import lie as jlie
 from como_tpu.net.depthcov import DepthCovPrior as JPrior
 from como_tpu.odom import mapping as jmap
 from como_tpu.odom.frontend import corr as jcorr
-from como_tpu.utils.demo import anchor_grid
+from como_tpu.utils.demo import anchor_grid as jax_anchor_grid
 from como_tpu_torch.net.depthcov import DepthCovPrior as TPrior
 from como_tpu_torch.odom import mapping as tmap
 from como_tpu_torch.odom.frontend import corr as tcorr
+from como_tpu_torch.utils.demo import anchor_grid as torch_anchor_grid
 import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 IMG = (48, 64)
@@ -32,13 +33,14 @@ def scene():
     rgb0, depth0 = sc.render(jnp.eye(4))
     pose1 = jlie.se3_exp(jnp.array([0.003, -0.002, 0.001, 0.35, 0.05, 0.02], jnp.float32))
     rgb1, _ = sc.render(pose1)
-    axy = np.asarray(anchor_grid(IMG, M))
+    axy = np.asarray(jax_anchor_grid(IMG, M))
     d0 = np.asarray(depth0)[0, 0]
     logzm = np.log(d0[axy[:, 1].astype(int), axy[:, 0].astype(int)]).astype(np.float32)
     cov0 = np.asarray(JPrior().cov_params(rgb0))
     cov1 = np.asarray(JPrior().cov_params(rgb1))
     return dict(K=np.asarray(sc.K), rgb0=np.asarray(rgb0), rgb1=np.asarray(rgb1),
-                pose1=np.asarray(pose1), axy=axy, logzm=logzm, cov0=cov0, cov1=cov1)
+                pose1=np.asarray(pose1), axy=axy,
+                axy_t=torch_anchor_grid(IMG, M, device="cpu"), logzm=logzm, cov0=cov0, cov1=cov1)
 
 
 def test_prior_cov_params(scene):
@@ -55,7 +57,7 @@ def test_prep_keyframe(scene):
     K_mm^-1, condition ~1e4, through an f32 Cholesky)."""
     pj = jmap.prep_keyframe(jnp.asarray(scene["rgb0"]), jnp.asarray(scene["cov0"]),
                             jnp.asarray(scene["axy"]), jnp.asarray(scene["K"]), 1.0, 4)
-    pt = tmap.prep_keyframe(_t(scene["rgb0"]), _t(scene["cov0"]), _t(scene["axy"]),
+    pt = tmap.prep_keyframe(_t(scene["rgb0"]), _t(scene["cov0"]), scene["axy_t"],
                             _t(scene["K"]), 1.0, 4)
     np.testing.assert_array_equal(pt["dense_rc"].numpy(), np.asarray(pj["dense_rc"]))
     np.testing.assert_allclose(pt["iag"].numpy(), np.asarray(pj["iag"]), rtol=1e-5, atol=1e-6)
@@ -80,7 +82,7 @@ def test_corr_and_prep(scene):
         jnp.asarray(scene["cov1"]), jnp.asarray(K), 1.0, M, ccfg, 4, IMG,
         jax.random.PRNGKey(0))
     rt, prt, Pwt = tmap._corr_and_prep(
-        torch.eye(4), _t(scene["pose1"]), _t(scene["axy"]), _t(scene["logzm"]),
+        torch.eye(4), _t(scene["pose1"]), scene["axy_t"], _t(scene["logzm"]),
         _t(pj0["Knm_full"]), _t(scene["rgb1"]), _t(scene["cov1"]), _t(K), 1.0, M,
         tcorr.CorrStatic(border=2), 4, IMG)
     np.testing.assert_array_equal(rt.tracked.numpy(), np.asarray(rj.tracked))

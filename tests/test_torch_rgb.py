@@ -18,13 +18,16 @@ from como_tpu.odom import tracking as jtr
 from como_tpu.odom import window as jwin
 from como_tpu.odom.backend import gn_step as jgn
 from como_tpu.odom.frontend import tracking_kernels as jtk
-from como_tpu.utils.demo import anchor_grid, make_demo_state
+from como_tpu.utils.demo import anchor_grid as jax_anchor_grid
+from como_tpu.utils.demo import make_demo_state as jax_demo_state
 from como_tpu_torch.config import TrackingConfig as TTrackingConfig
 from como_tpu_torch.odom import mapping as tmap
 from como_tpu_torch.odom import tracking as ttr
 from como_tpu_torch.odom import window as twin
 from como_tpu_torch.odom.backend import gn_step as tgn
 from como_tpu_torch.odom.frontend import tracking_kernels as ttk
+from como_tpu_torch.utils.demo import anchor_grid as torch_anchor_grid
+from como_tpu_torch.utils.demo import make_demo_state as torch_demo_state
 import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 IMG = (48, 64)
@@ -127,14 +130,12 @@ def demo():
     window of test_torch_gn_step.py has no such site."""
     kw = dict(num_kf=4, num_ow=3, M=16, img_size=IMG, channels=3)
     dims_j = jwin.make_dims(**kw)
-    st, pairs, K = make_demo_state(dims_j, num_kf=3, num_ow=2, channels=3, seed=1,
-                                   scene_kwargs=dict(chroma=True))
-    fields = {k: np.asarray(v) for k, v in st._asdict().items()}
-    pairs_t = tuple(torch.as_tensor(np.array(p)).to(torch.int64 if i < 2 else torch.bool)
-                    for i, p in enumerate(pairs))
-    return dict(st=st, pairs=pairs, K=K, dims_j=dims_j,
-                st_t=twin.state_from_numpy(fields, "cpu"), pairs_t=pairs_t,
-                K_t=torch.as_tensor(np.asarray(K)), dims_t=twin.make_dims(**kw))
+    demo_kw = dict(num_kf=3, num_ow=2, channels=3, seed=1, scene_kwargs=dict(chroma=True))
+    st, pairs, K = jax_demo_state(dims_j, **demo_kw)
+    dims_t = twin.make_dims(**kw)
+    st_t, pairs_t, K_t = torch_demo_state(dims_t, device="cpu", **demo_kw)
+    return dict(st=st, pairs=pairs, K=K, dims_j=dims_j, st_t=st_t, pairs_t=pairs_t,
+                K_t=K_t, dims_t=dims_t)
 
 
 def test_rgb_window_shapes(demo):
@@ -180,11 +181,11 @@ def test_rgb_gn_step_matches(demo):
 def test_rgb_prep_keyframe(pair):
     """prep_keyframe with C = 3: the image stack holds 3 x (value, gx, gy),
     the dense sites come from the gray gradient, their values are RGB."""
-    axy = np.asarray(anchor_grid(IMG, 16))
     cov0 = np.asarray(JPrior().cov_params(jnp.asarray(pair["rgb0"])))
-    pj = jmap.prep_keyframe(jnp.asarray(pair["rgb0"]), jnp.asarray(cov0), jnp.asarray(axy),
-                            jnp.asarray(pair["K"]), 1.0, 4, C=3)
-    pt = tmap.prep_keyframe(_t(pair["rgb0"]), _t(cov0), _t(axy), _t(pair["K"]), 1.0, 4, C=3)
+    pj = jmap.prep_keyframe(jnp.asarray(pair["rgb0"]), jnp.asarray(cov0),
+                            jax_anchor_grid(IMG, 16), jnp.asarray(pair["K"]), 1.0, 4, C=3)
+    pt = tmap.prep_keyframe(_t(pair["rgb0"]), _t(cov0), torch_anchor_grid(IMG, 16, "cpu"),
+                            _t(pair["K"]), 1.0, 4, C=3)
     assert pt["iag"].shape == (9,) + IMG and pt["dense_vals"].shape == (3, N // 16)
     np.testing.assert_array_equal(pt["dense_rc"].numpy(), np.asarray(pj["dense_rc"]))
     np.testing.assert_allclose(pt["iag"].numpy(), np.asarray(pj["iag"]), rtol=1e-5, atol=1e-6)

@@ -156,7 +156,8 @@ def test_unet_prior_differs_from_analytic(runs, unet_runs):
 
 
 def test_engine_refuses_unported_options():
+    """mapping.mesh_devices >= 2 is the one engine option still unported."""
     cfg = small_config(TConfig)
-    cfg.frame_batch, cfg.dispatch_depth = 2, 2
-    with pytest.raises(NotImplementedError):
+    cfg.mapping.mesh_devices = 2
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
         TSeq(cfg.validate(), np.eye(3, dtype=np.float32), IMG, device="cpu")
