@@ -45,6 +45,21 @@ Phases, in this order, one JSON line each:
   layers     one GN iteration and one frame's tracking on the final window
   profile    device time by kernel over two more frames, idle share
   determinism two GN steps on the final full-size window: bitwise equal
+  viz        como_tpu_torch.cli.main --viz on 15 plane frames, no --device, in
+             chiprun_out/viz/ (headless: the snapshot viewer): one PNG per
+             viewer call, each 384x512x3 with overlay pixels, no failed
+             snapshot, both kernels launched; render_map on the card against
+             the same call on the CPU (the main path's final window), device
+             ms per render
+  mesh       the sharded GN step (parallel/sharded.py) over 2 and 8 shards of
+             this card against the single step, on the main path's final
+             window and on the 18 KF / 48 OW stress window: global sigma
+             bitwise equal, photometric grids within 1e-5, update within the
+             JAX package's tolerances (tests/test_multichip.py) or twice the
+             single step's spread under a reversal of its pairs, whether it
+             is the single step's bit for bit, two sharded steps bitwise
+             equal, host ms per step; then ComoSeq with mapping.mesh_devices: 2 (raises on
+             a one-card host; runs the plane sequence on two or more cards)
   total      seconds the script took
 Then the kernel table line {"kernels": [...]}, the nvidia-smi card line,
 and last {"ok": true, "device": {...}}.  Any failed check raises and the
@@ -80,6 +95,23 @@ PLANE_ATE_GUARD_M = 0.02
 # within UNET_F32_TOL (abs, rel); bf16 convolutions within the bf16 floor
 # (median relative difference, max abs), which is what JAX's own bf16 run
 # differs from its f32 run by (tests/test_torch_unet.py).
+# The sharded step against the single step: tests/test_multichip.py's
+# tolerances (total_err rtol, kf_pose atol, P_lm atol), on the default window
+# and on the 18 KF / 48 OW stress window, or twice the single step's own
+# spread under a reordering of its pairs where that is larger; the
+# photometric grids of the linear system within MESH_GRID_RTOL of the
+# largest entry (f32 sums in another order).
+MESH_TOL = (1e-3, 1e-4, 1e-3)
+MESH_STRESS_TOL = (1e-3, 2e-2, 5e-3)
+MESH_GRID_RTOL = 1e-5
+# render_map on the card against the CPU: depth within VIZ_DEPTH_RTOL where
+# both are set; colours within VIZ_COLOUR_ATOL (the shading's depth
+# gradients are convolutions, summed in another order on each device) on
+# all but VIZ_COLOUR_SHARE of the pixels (a projection's truncation to a
+# pixel, or a z-buffer tie, flips with ulp-level differences).
+VIZ_DEPTH_RTOL = 1e-5
+VIZ_COLOUR_ATOL = 1e-5
+VIZ_COLOUR_SHARE = 0.01
 # Depths of two earlier paths, cut (from 60 and 25 frames) when the runtime
 # phases were added, to keep the whole script well inside its time limit on a
 # slow host; both still bootstrap and insert keyframes.
@@ -220,6 +252,108 @@ def ate_m(eng, ds) -> float:
 
     idx = (torch.tensor(eng.timestamps) * ds.fps).round().long().numpy()
     return ate_rmse(eng.poses_numpy(), ds.poses[idx], with_scale=True)
+
+
+def mesh_case(dev, state, pairs, K_intr, dims, sigmas, damping, n, tol) -> dict:
+    """The sharded GN step over n shards of `dev` against the single step on
+    one window: global sigma, the linear system's photometric grids, the
+    update, repeatability, host ms per step.  The update is also held
+    against the single step's own spread: the single step with its pairs
+    in reverse order (the same system, its grid sums reassociated)."""
+    import torch
+
+    from como_tpu_torch.odom.backend import gn_step as gs
+    from como_tpu_torch.parallel import sharded
+
+    step = sharded.make_sharded_gn_step([dev] * n, dims, sigmas, damping)
+    s1, g1 = gs._gn_step_impl(state, *pairs, K_intr, dims, sigmas, damping)
+    s2, g2 = step(state, *pairs, K_intr)
+    s3, g3 = step(state, *pairs, K_intr)
+    s_rev, _ = gs._gn_step_impl(state, *(a.flip(0) for a in pairs), K_intr, dims, sigmas,
+                                damping)
+    repeat = all(torch.equal(getattr(s2, f), getattr(s3, f)) for f in s2.fields()) \
+        and all(torch.equal(a, b) for a, b in zip(g2, g3))
+    # the photometric linearization and sigma, sharded and single
+    sc = gs._scaffold(state, K_intr, dims, sigmas.far_depth_ratio)
+    st = state.replace(P_lm=sc["P_lm_new"])
+    dn = gs._dense_points(st, sc, K_intr, dims)
+    occl = sigmas.occlusion_thresh
+    photo_n, sig_n = sharded.photo_over_shards([dev] * n, st, sc, dn, *pairs, K_intr, dims,
+                                               sigmas)
+    sig_1 = gs.photo_sigma([gs._photo_residual(st, sc, dn, *pairs, K_intr, dims, occl)], dev)
+    photo_1 = gs._photo(st, sc, dn, *pairs, K_intr, dims, occl, sigmas.estimate_affine)
+    grid_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(photo_n, photo_1))
+
+    def maxdiff(a, b, f):
+        return float((getattr(a, f) - getattr(b, f)).abs().max())
+
+    out = dict(shards=n, pairs=int(pairs[0].shape[0]), sigma=float(sig_1),
+               sigma_bitwise_equal=bool(torch.equal(sig_n, sig_1)),
+               grids_max_rel_err=grid_err,
+               total_err_rel_err=float(abs(g2.total_err - g1.total_err)
+                                       / abs(g1.total_err)),
+               kf_pose_max_abs_err=maxdiff(s2, s1, "kf_pose"),
+               P_lm_max_abs_err=maxdiff(s2, s1, "P_lm"),
+               single_reversed_pairs_kf_pose_max_abs_diff=maxdiff(s_rev, s1, "kf_pose"),
+               single_reversed_pairs_P_lm_max_abs_diff=maxdiff(s_rev, s1, "P_lm"),
+               window_bitwise_equal_to_single=all(torch.equal(getattr(s1, f), getattr(s2, f))
+                                                  for f in s1.fields()),
+               total_err_finite=bool(torch.isfinite(g1.total_err)),
+               two_steps_bitwise_equal=repeat,
+               ms=time_ms(lambda: step(state, *pairs, K_intr), n=10, warmup=1),
+               single_ms=time_ms(lambda: gs._gn_step_impl(state, *pairs, K_intr, dims,
+                                                          sigmas, damping), n=10, warmup=1))
+    # the update within the JAX package's tolerance, or within twice the
+    # single step's own spread where that is larger (a reassociation of
+    # f32 sums, amplified by the solve in the window's weak directions)
+    out["ok"] = (out["sigma_bitwise_equal"] and repeat and out["total_err_finite"]
+                 and grid_err <= MESH_GRID_RTOL and out["total_err_rel_err"] <= tol[0]
+                 and out["kf_pose_max_abs_err"]
+                 <= max(tol[1], 2 * out["single_reversed_pairs_kf_pose_max_abs_diff"])
+                 and out["P_lm_max_abs_err"]
+                 <= max(tol[2], 2 * out["single_reversed_pairs_P_lm_max_abs_diff"]))
+    return out
+
+
+def render_case(viz, K_intr, dev) -> dict:
+    """render_map of a window's viz data from the snapshot viewer's camera,
+    on `dev` and on the CPU: depth and colour differences, device ms."""
+    import torch
+
+    from como_tpu_torch.geometry.lie import se3_exp
+    from como_tpu_torch.viz.renderer import render_map
+
+    poses = viz["poses"].to(dev)
+    T_view = poses[-1] @ se3_exp(torch.tensor([0.25, 0.0, 0.0, 0.0, -0.15, -0.8],
+                                              device=dev))
+    args = (viz["rgbs"].to(dev), viz["depths"].to(dev), poses,
+            torch.ones(poses.shape[0], dtype=torch.bool, device=dev), K_intr.to(dev), T_view)
+    rgb_d, depth_d = render_map(*args)
+    rgb_2, depth_2 = render_map(*args)
+    rgb_c, depth_c = render_map(*(a.cpu() for a in args))
+    rgb_d, depth_d = rgb_d.cpu(), depth_d.cpu()
+    both = (depth_c > 0) & (depth_d > 0)
+    rel = ((depth_d - depth_c).abs() / depth_c.clamp(min=1e-30))[both]
+    # a pixel whose colour moved by more than the shading's rounding took
+    # another candidate's colour
+    colour_diff = (rgb_d - rgb_c).abs().amax(-1)
+    colour_share = float((colour_diff > VIZ_COLOUR_ATOL).float().mean())
+    ms, kernels = device_ms(lambda: render_map(*args), n=10)
+    out = dict(keyframes=int(poses.shape[0]), out_size=list(rgb_d.shape),
+               covered_share=float((depth_d > 0).float().mean()),
+               set_pixels_differ=int(((depth_c > 0) != (depth_d > 0)).sum()),
+               depth_max_rel_err=float(rel.max()) if rel.numel() else 0.0,
+               colour_differs_share=colour_share,
+               colour_max_abs_err_elsewhere=float(colour_diff[colour_diff <= VIZ_COLOUR_ATOL]
+                                                  .max()),
+               two_renders_bitwise_equal=bool(torch.equal(rgb_d, rgb_2.cpu())
+                                              and torch.equal(depth_d, depth_2.cpu())),
+               device_ms=ms, kernels_per_render=kernels,
+               call_ms=time_ms(lambda: render_map(*args), n=10))
+    out["ok"] = (out["two_renders_bitwise_equal"] and out["depth_max_rel_err"] <= VIZ_DEPTH_RTOL
+                 and colour_share <= VIZ_COLOUR_SHARE and out["covered_share"] > 0)
+    return out
 
 
 def main() -> int:
@@ -733,6 +867,88 @@ def main() -> int:
         raise SystemExit("the unfused step's poses differ from the fused plane phase's")
     del ds_p
 
+    # ---- 8e. viz: the CLI's --viz through the snapshot viewer ------------------
+    # cli.main --viz in this process, no --device, in a working directory under
+    # chiprun_out/ (the viewer writes results/viz/ there).  open3d's import is
+    # blocked for the call: on a headless machine the snapshot viewer is the
+    # viewer, installed or not.  Its period is set to 0, so every call of the
+    # engine's viz_listener writes one PNG.
+    import importlib.util
+    import os
+    import shutil
+
+    from como_tpu_torch.viz import viewer as viz_viewer
+    from como_tpu_torch.viz.png import read_png
+
+    viz_cwd = OUT / "viz"
+    shutil.rmtree(viz_cwd, ignore_errors=True)
+    viz_cwd.mkdir(parents=True)
+    snap_init, snap_call = viz_viewer.SnapshotViewer.__init__, viz_viewer.SnapshotViewer.__call__
+    snap_ms = []
+
+    def snap_init_every_call(self, engine, out_dir="results/viz", period_s=1.0, follow=True):
+        snap_init(self, engine, out_dir, 0.0, follow)
+
+    def snap_call_timed(self, viz):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap_call(self, viz)
+        torch.cuda.synchronize()
+        snap_ms.append((time.perf_counter() - t) * 1e3)
+
+    open3d_found = importlib.util.find_spec("open3d") is not None
+    saved_o3d = sys.modules.get("open3d", "absent")
+    viz_viewer.SnapshotViewer.__init__ = snap_init_every_call
+    viz_viewer.SnapshotViewer.__call__ = snap_call_timed
+    sys.modules["open3d"] = None
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(viz_cwd)
+        with contextlib.redirect_stdout(io.StringIO()) as viz_stdout:
+            eng_v = cli.main(["--dataset_type", "synthetic:plane", "--viz", "--max_frames", "15",
+                              "--save_traj", "traj"])
+    finally:
+        os.chdir(HERE)
+        viz_viewer.SnapshotViewer.__init__, viz_viewer.SnapshotViewer.__call__ = (
+            snap_init, snap_call)
+        if saved_o3d == "absent":
+            del sys.modules["open3d"]
+        else:
+            sys.modules["open3d"] = saved_o3d
+    viz_seconds = time.perf_counter() - t0
+    viz_launches, _ = read_launches()
+    viewer = eng_v.viz_listener
+    pngs = sorted((viz_cwd / "results" / "viz").glob("map_*.png"))
+    shapes, overlay = [], []
+    for f in pngs:
+        a = read_png(f)
+        shapes.append(list(a.shape))
+        overlay.append(int((a == np.array([40, 230, 70])).all(-1).sum()
+                           + (a == np.array([235, 60, 60])).all(-1).sum()))
+    render = render_case(m.get_kf_viz_data(), m.K, dev)
+    emit("viz", output_line=viz_stdout.getvalue().strip().splitlines()[-1],
+         viewer=type(viewer).__name__, open3d_installed=open3d_found,
+         listener_calls=len(snap_ms), pngs=len(pngs), failures=viewer.failures,
+         png_shapes_ok=all(sh == [384, 512, 3] for sh in shapes),
+         overlay_pixels=overlay, snapshot_ms_median=statistics.median(snap_ms) if snap_ms
+         else None, engine_device=str(eng_v.device), frames_tracked=len(eng_v.timestamps),
+         num_kf=eng_v.mapping.num_kf, launches=viz_launches, seconds_with_setup=viz_seconds,
+         render_main_path_window=render, depth_rtol=VIZ_DEPTH_RTOL,
+         colour_share_allowed=VIZ_COLOUR_SHARE)
+    if not isinstance(viewer, viz_viewer.SnapshotViewer) or eng_v.device.type != "cuda":
+        raise SystemExit("--viz did not attach the snapshot viewer to an engine on the card")
+    if viewer.failures or not snap_ms or len(pngs) != len(snap_ms):
+        raise SystemExit(f"--viz wrote {len(pngs)} PNGs for {len(snap_ms)} viewer calls, "
+                         f"{viewer.failures} failed")
+    if not all(sh == [384, 512, 3] for sh in shapes) or overlay[-1] <= 0:
+        raise SystemExit(f"the snapshots are not 384x512x3 with an overlay: {shapes} {overlay}")
+    if min(viz_launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched in the viz phase: {viz_launches}")
+    if not render["ok"]:
+        raise SystemExit(f"render_map on the card disagrees with the CPU: {render}")
+    del eng_v, viewer
+
     # ---- 9. layers: on the final full-size window, one GN iteration and one
     # frame's tracking
     gn_args = (m.state, *m._pairs, m.K, m.dims, m.sigmas, m.damping)
@@ -789,6 +1005,57 @@ def main() -> int:
     if not same:
         raise SystemExit("two GN steps on the same state differ")
 
+    # ---- 12. mesh: the sharded GN step over shards of this card --------------
+    from como_tpu_torch.odom.window import make_dims
+    from como_tpu_torch.utils.demo import make_demo_state
+
+    reset_launches()
+    main_cases = [mesh_case(dev, m.state, m._pairs, m.K, m.dims, m.sigmas, m.damping, n,
+                            MESH_TOL) for n in (2, 8)]
+    mesh_step_launches, _ = read_launches()     # the step reaches neither kernel
+    sd = make_dims(num_kf=18, num_ow=48, M=64, img_size=(H, W))
+    sd = sd._replace(P=-(-sd.P // 8) * 8)      # invalid pairs pad 130 to 136
+    s_state, s_pairs, s_K = make_demo_state(sd, num_kf=18, num_ow=8, device=dev)
+    stress_cases = [mesh_case(dev, s_state, s_pairs, s_K, sd, m.sigmas, m.damping, n,
+                              MESH_STRESS_TOL) for n in (2, 8)]
+    del s_state
+    cfg_mesh = load_config(str(HERE / "configs" / "como.yml"), {"mapping": {"mesh_devices": 2}})
+    engine = {}
+    if torch.cuda.device_count() < 2:
+        try:
+            ComoSeq(cfg_mesh, ds.intrinsics, (H, W), device="cuda")
+        except RuntimeError as e:
+            if "mesh_devices" not in str(e):
+                raise
+            engine = dict(ran=False, raised=str(e))
+        else:
+            raise SystemExit("mapping.mesh_devices: 2 built an engine on a one-card host")
+    else:
+        ds_m = SyntheticDataset(n_frames=25, img_size=(H, W), seed=0, scene="plane",
+                                step=0.012, device=dev)
+        eng_m = ComoSeq(cfg_mesh, ds_m.intrinsics, (H, W), device="cuda")
+        eng_m.setup()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng_m.run(ds_m)
+        torch.cuda.synchronize()
+        engine = dict(ran=True, mesh=[str(d) for d in eng_m.mapping.mesh],
+                      frames_tracked=len(eng_m.timestamps), num_kf=eng_m.mapping.num_kf,
+                      total_gn_iters=eng_m.mapping.total_iters, ate_m=ate_m(eng_m, ds_m),
+                      guard_m=PLANE_ATE_GUARD_M, launches=read_launches()[0],
+                      seconds=time.perf_counter() - t0)
+        del eng_m
+    emit("mesh", tol=list(MESH_TOL), stress_tol=list(MESH_STRESS_TOL), main_window=main_cases,
+         stress_window=dict(dims=list(sd), cases=stress_cases),
+         launches_in_the_steps=mesh_step_launches, cards=torch.cuda.device_count(),
+         engine_mesh_devices_2=engine)
+    for c in main_cases + stress_cases:
+        if not c["ok"]:
+            raise SystemExit(f"the sharded GN step disagrees with the single step: {c}")
+    if engine.get("ran") and not (engine["ate_m"] < PLANE_ATE_GUARD_M
+                                  and min(engine["launches"].values()) > 0):
+        raise SystemExit(f"the mesh engine failed the plane guard: {engine}")
+
     emit("total", seconds=time.perf_counter() - t_script)
     # the cross-covariance entry's own keys are those of its full-size shape;
     # "shapes" holds every timed shape class with its main-path launches
@@ -796,7 +1063,7 @@ def main() -> int:
         sh["launches"] = by_shape.get("{}x{}".format(*sh["shape"]), 0)
     by_path = {"plane": plane_launches, "main_path": launches, "cli": cli_launches,
                "rgb": rgb_launches, "pipeline": pipe_launches, "pipeline_plane": pp_launches,
-               **{f"runtimes_{k}": v for k, v in rt_launches.items()}}
+               **{f"runtimes_{k}": v for k, v in rt_launches.items()}, "viz": viz_launches}
     full = cc_shapes[0]
     table = [
         dict(name="cross_covariance", route="cuda", source="como_tpu_torch/csrc/gp_kernels.cu",

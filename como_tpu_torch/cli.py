@@ -7,8 +7,9 @@
 The flags are those of the JAX package's CLI, plus --device (default
 "cuda").  Without a CUDA device the run fails unless --device cpu is given;
 it does not carry on on the CPU.  --runtime pipeline runs the two stage
-threads of runtime/pipeline.py; the viewer (--viz) is not ported yet and
-raises.
+threads of runtime/pipeline.py.  --viz attaches the Open3D viewer, or where
+open3d is not installed the snapshot viewer, which writes PNGs of the map
+to results/viz/ under the working directory (viz/viewer.py).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def main(argv=None):
     p.add_argument("--realtime", action="store_true",
                    help="pace frames to dataset timestamps")
     p.add_argument("--viz", action="store_true",
-                   help="attach the Open3D viewer (not ported yet)")
+                   help="attach the Open3D viewer (PNG snapshots without open3d)")
     p.add_argument("--profile", type=str, default=None,
                    help="directory for a torch profiler trace (trace.json)")
     p.add_argument("--resume", type=str, default=None,
@@ -46,9 +47,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the engine: cuda (default) or cpu")
     args = p.parse_args(argv)
-
-    if args.viz:
-        raise NotImplementedError("--viz is not ported yet (ROADMAP §1: viz/)")
 
     import torch
 
@@ -76,6 +74,9 @@ def main(argv=None):
     if args.resume:
         from como_tpu_torch.utils.checkpoint import load_mapping_state
         load_mapping_state(eng.mapping, args.resume, device=args.device)
+    if args.viz:
+        from como_tpu_torch.viz.viewer import attach_viewer
+        attach_viewer(eng)
 
     n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
     t_start = time.perf_counter()

@@ -27,7 +27,7 @@ from como_tpu_torch.odom.backend.robust import huber as _huber_w
 from como_tpu_torch.odom.window import WindowDims, WindowState
 from como_tpu_torch.ops import linalg
 from como_tpu_torch.ops.interp import bilinear_sample_frames
-from como_tpu_torch.ops.reduce import fast_mad_sigma, histogram_median_rows
+from como_tpu_torch.ops.reduce import fast_mad_sigma_shards, histogram_median_rows
 
 
 class GNStats(NamedTuple):
@@ -151,11 +151,49 @@ def _dense_points(state: WindowState, sc, K_intr, dims: WindowDims):
 def _photo(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
            dims: WindowDims, occl_thresh: float = 0.0,
            estimate_affine: bool = True):
-    K, O, M, ND, C = dims.K, dims.O, dims.M, dims.ND, dims.C
-    F_ = K + O
+    """Photometric blocks of the pairs: residuals, the robust MAD sigma
+    over them, the per-pair Jacobian blocks, then their accumulation into
+    frame grids.  The pair batch may be split into shards for the residual
+    and per-pair halves (parallel/sharded.py); the sigma is then taken over
+    every shard and the grids over every pair."""
+    res = _photo_residual(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
+                          dims, occl_thresh)
+    blocks = _photo_pair_blocks(res, photo_sigma([res], res["r"].device), K_intr, dims,
+                                estimate_affine)
+    return _photo_grids(blocks, dims)
+
+
+def photo_sigma(parts, device):
+    """The robust photometric sigma (MAD of the valid residuals) over the
+    residual halves of one or more pair shards, on `device`."""
+    return fast_mad_sigma_shards(
+        [p["r"] for p in parts], [p["valid_c"].expand(p["r"].shape) for p in parts],
+        device) + 1e-12
+
+
+_PHOTO_STATE_FIELDS = ("kf_pose", "kf_aff", "kf_img", "kf_valid", "ow_pose", "ow_aff",
+                       "ow_img", "ow_valid", "dense_vals", "P_lm")
+_PHOTO_DENSE_KEYS = ("Pw_n", "Pc_n", "u", "q", "v")
+
+
+def photo_inputs(state, sc, dn, occl_thresh: float):
+    """What _photo_residual reads of (state, sc, dn): the state fields, and
+    the dense-point and scaffold entries (a shard's device needs only these;
+    the full-image GP `Knm_full` only when the occlusion gate is on)."""
+    fields = _PHOTO_STATE_FIELDS + (("Knm_full",) if occl_thresh > 0.0 else ())
+    sc_keys = ("logzm",) if occl_thresh > 0.0 else ()
+    return ({f: getattr(state, f) for f in fields}, {k: sc[k] for k in sc_keys},
+            {k: dn[k] for k in _PHOTO_DENSE_KEYS})
+
+
+def _photo_residual(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
+                    dims: WindowDims, occl_thresh: float = 0.0):
+    """First half of _photo: warped residuals and validity of the pairs,
+    with what the block half reads.  `state` may be any object with the
+    fields of photo_inputs."""
+    K, C = dims.K, dims.C
     H_img, W_img = dims.H, dims.W
     fx, fy, cx, cy = K_intr[0, 0], K_intr[1, 1], K_intr[0, 2], K_intr[1, 2]
-    dtype = state.P_lm.dtype
 
     pose_f = torch.cat([state.kf_pose, state.ow_pose], 0)
     aff_f = torch.cat([state.kf_aff, state.ow_aff], 0)
@@ -163,7 +201,6 @@ def _photo(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
     valid_f = torch.cat([state.kf_valid, state.ow_valid], 0)
 
     i, j = pairs_ref, pairs_tgt
-    P = i.shape[0]
     vals_i = state.dense_vals[i]                             # (P, C, ND)
     Pw_n = dn["Pw_n"][i]
     Pc_i = dn["Pc_n"][i]
@@ -209,9 +246,23 @@ def _photo(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
     vals_scaled = ea * vals_i
     r = I_t - vals_scaled + (aff_j[:, 1] - aff_i[:, 1])[:, None, None]
 
-    valid_c = valid[:, None, :]
-    sigma = fast_mad_sigma(r.reshape(P, C * ND),
-                           valid_c.expand(r.shape).reshape(P, C * ND)) + 1e-12
+    return dict(i=i, j=j, r=r, valid_c=valid[:, None, :], vals_scaled=vals_scaled,
+                px=px, py=py, zj_safe=zj_safe, gx=gx, gy=gy, Rcw_j=Rcw_j, Adj_j=Adj_j,
+                R_i=R_i, Pw_n=Pw_n, Pc_i=Pc_i, u_i=u_i, q_i=q_i, v_i=v_i)
+
+
+def _photo_pair_blocks(res, sigma, K_intr, dims: WindowDims, estimate_affine: bool = True):
+    """Second half of _photo: robust weights under `sigma`, Jacobians and
+    the per-pair Hessian / gradient blocks of one shard's _photo_residual,
+    with the shard's photometric error."""
+    M, ND, C = dims.M, dims.ND, dims.C
+    fx, fy, cx, cy = K_intr[0, 0], K_intr[1, 1], K_intr[0, 2], K_intr[1, 2]
+    i, j, r, valid_c, vals_scaled = (res[k] for k in ("i", "j", "r", "valid_c",
+                                                      "vals_scaled"))
+    px, py, zj_safe, gx, gy = (res[k] for k in ("px", "py", "zj_safe", "gx", "gy"))
+    Rcw_j, Adj_j, R_i, Pw_n, Pc_i, u_i, q_i, v_i = (
+        res[k] for k in ("Rcw_j", "Adj_j", "R_i", "Pw_n", "Pc_i", "u_i", "q_i", "v_i"))
+    P = i.shape[0]
     w = _huber_w(r / sigma) * valid_c / (sigma * sigma * C)
     photo_err = torch.sum(w * r * r)
 
@@ -257,9 +308,23 @@ def _photo(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
     Hj_zm = torch.einsum("pcnk,pcnm->pkm", J8_j * ws[..., None],
                          v_i[:, None].expand(P, C, ND, M))
     g_zm_p = -torch.einsum("pn,pnm->pm", wsr_n, v_i)
+    return dict(i=i, j=j, H_ii=H_ii, H_jj=H_jj, H_ij=H_ij, g_i=g_i, g_j=g_j, Hzm_p=Hzm_p,
+                Hi_zm=Hi_zm, Hj_zm=Hj_zm, g_zm_p=g_zm_p, photo_err=photo_err)
 
-    # accumulate per-pair blocks into frame grids with one-hot matmuls
-    # (deterministic; see module doc)
+
+PAIR_BLOCK_KEYS = ("i", "j", "H_ii", "H_jj", "H_ij", "g_i", "g_j", "Hzm_p", "Hi_zm",
+                   "Hj_zm", "g_zm_p")
+
+
+def _photo_grids(blocks, dims: WindowDims):
+    """Accumulate the per-pair blocks (all pairs, PAIR_BLOCK_KEYS) into the
+    frame grids with one-hot matmuls (deterministic; see module doc):
+    (HPP, gP, Hzm, HPzm, gzm, photo_err)."""
+    K, O = dims.K, dims.O
+    F_ = K + O
+    i, j, H_ii, H_jj, H_ij, g_i, g_j, Hzm_p, Hi_zm, Hj_zm, g_zm_p = (
+        blocks[k] for k in PAIR_BLOCK_KEYS)
+    dtype = H_ii.dtype
     oi = _onehot(i, F_, dtype)                                # (P, F)
     oj = _onehot(j, F_, dtype)
     oik = oi[:, :K]
@@ -272,7 +337,7 @@ def _photo(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
     HPzm = (torch.einsum("pf,pk,pam->fkam", oi, oik, Hi_zm)
             + torch.einsum("pf,pk,pam->fkam", oj, oik, Hj_zm))
     gzm = oik.T @ g_zm_p
-    return HPP, gP, Hzm, HPzm, gzm, photo_err
+    return HPP, gP, Hzm, HPzm, gzm, blocks["photo_err"]
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from como_tpu_torch.odom.frontend import sfm as sfm_mod
 from como_tpu_torch.ops import image as img_ops
 from como_tpu_torch.ops import linalg
 from como_tpu_torch.ops.coords import coord_grid_rc, normalize_coords
+from como_tpu_torch.parallel import sharded
 from como_tpu_torch.utils.log import NULL_LOG
 
 
@@ -190,10 +191,22 @@ def sample_initial_anchors(cov_img, scale, M: int, border: int, dist_thresh: flo
 
 class Mapping:
     def __init__(self, cfg: MappingConfig, intrinsics, img_size, device="cuda"):
-        if cfg.mesh_devices >= 2:
-            raise NotImplementedError("mapping.mesh_devices >= 2 is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
+        # multi-device BA (cfg.mesh_devices >= 2): every GN step splits the
+        # pairs over the mesh (parallel/sharded.py): cuda:0 .. cuda:N-1 for a
+        # CUDA engine, N shards on the CPU for a CPU one
+        self.mesh = None
+        n = cfg.mesh_devices
+        if n >= 2:
+            if self.device.type == "cuda":
+                avail = torch.cuda.device_count()
+                if avail < n:
+                    raise RuntimeError(f"mapping.mesh_devices={n} but only {avail} CUDA "
+                                       "devices are visible")
+                self.mesh = [torch.device("cuda", i) for i in range(n)]
+            else:
+                self.mesh = [self.device] * n
         self.K = torch.as_tensor(intrinsics, dtype=torch.float32).to(self.device)
         self.img_size = tuple(img_size)
         self.is_init = False
@@ -210,6 +223,11 @@ class Mapping:
             M=cfg.sampling.max_num_coords, img_size=self.img_size,
             nms_window=pc.nonmax_suppression_window,
             radius_pairs=self._radius_mode, channels=self.C)
+        if self.mesh is not None:
+            # round the pair capacity up so the pairs split evenly over the
+            # mesh (the extra slots are invalid pairs)
+            n = len(self.mesh)
+            self.dims = self.dims._replace(P=-(-self.dims.P // n) * n)
         self.dtype = {"float32": torch.float32}[cfg.dtype]
         self.state = win.empty_state(self.dims, dtype=self.dtype, device=self.device)
         self.alloc = win.LandmarkAllocator(self.dims.L)
@@ -248,6 +266,8 @@ class Mapping:
         self._stats_hist = []
         self._prev_err = float("inf")
         self.damping = cfg.gn_damping
+        self._sharded_step = None if self.mesh is None else sharded.make_sharded_gn_step(
+            self.mesh, self.dims, self.sigmas, cfg.gn_damping)
         # (warm_start: the JAX package pre-runs every insertion program to
         # pay XLA compilation at setup; eager PyTorch has nothing to warm)
 
@@ -501,11 +521,20 @@ class Mapping:
         self._stats_hist.append((self.iter_count, stats))
         del self._stats_hist[:-8]
 
+    @property
+    def uses_mesh(self) -> bool:
+        return self.mesh is not None
+
     def iterate(self):
         """One GN iteration on the window: the step the sequential engine
-        runs beside each frame's tracking, with the same bookkeeping."""
-        self.state, stats = _gn_step_impl(self.state, *self._pairs, self.K, self.dims,
-                                          self.sigmas, self.damping)
+        runs beside each frame's tracking, with the same bookkeeping;
+        sharded over the mesh where there is one."""
+        if self._sharded_step is not None:
+            self.state, stats = self._sharded_step(self.state, *self._pairs, self.K,
+                                                   self.damping)
+        else:
+            self.state, stats = _gn_step_impl(self.state, *self._pairs, self.K, self.dims,
+                                              self.sigmas, self.damping)
         self.note_iteration(stats)
         return stats
 

@@ -41,8 +41,8 @@ import torch
 from como_tpu_torch.config import ComoConfig
 from como_tpu_torch.odom.mapping import Mapping
 from como_tpu_torch.odom.tracking import Tracking
-from como_tpu_torch.runtime.placement import (device_scope, resolve_stage_devices,
-                                              tree_device_put)
+from como_tpu_torch.runtime.placement import (device_scope, resolve_device,
+                                              resolve_stage_devices, tree_device_put)
 from como_tpu_torch.runtime.queues import make_queue
 from como_tpu_torch.runtime.seq import frame_tensor, poses_numpy
 from como_tpu_torch.utils.io import save_traj
@@ -59,6 +59,10 @@ class ComoPipeline:
         # move via tree_device_put (the reference's transfer-on-push)
         self.track_dev, self.map_dev = resolve_stage_devices(
             cfg.tracking.device, cfg.mapping.device, device)
+        if cfg.mapping.mesh_devices >= 2:
+            # multi-device BA: both stages on the engine's default device
+            # (the mesh's first); mapping splits its GN steps over the mesh
+            self.track_dev = self.map_dev = resolve_device(None, device)
         # decision_lag: handle_frame decides synchronously, yet the JAX
         # package passes dispatch_depth here (so kf_anticipate: -1
         # extrapolates the keyframe criterion over a lag that does not

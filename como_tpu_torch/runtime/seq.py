@@ -22,6 +22,10 @@ Three options change when decisions land, and nothing else on one GPU
   `tree_device_put`, and tracking and the GN iteration are dispatched
   separately.  On one device the separate dispatches enqueue the same
   kernels in the same order as the fused one.
+`mapping.mesh_devices >= 2` splits every GN step's pairs over a mesh
+(parallel/sharded.py): both stages then run on the engine's default
+device, the step is dispatched unfused, and `frame_batch: 2` falls back to
+single frames, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ from como_tpu_torch.odom.backend.gn_step import _gn_step_impl
 from como_tpu_torch.odom.mapping import Mapping
 from como_tpu_torch.odom.tracking import (Tracking, host_value,
                                           predict_const_velocity, track_frame)
-from como_tpu_torch.runtime.placement import (device_scope, resolve_stage_devices,
-                                              spec_index, tree_device_put)
+from como_tpu_torch.runtime.placement import (device_scope, resolve_device,
+                                              resolve_stage_devices, spec_index,
+                                              tree_device_put)
 from como_tpu_torch.utils.io import save_traj
 from como_tpu_torch.utils.log import EventLog
 
@@ -104,6 +109,11 @@ class ComoSeq:
             cfg.tracking.device, cfg.mapping.device, device)
         self.split_devices = (spec_index(cfg.tracking.device)
                               != spec_index(cfg.mapping.device))
+        if cfg.mapping.mesh_devices >= 2:
+            # multi-device BA: both stages on the engine's default device
+            # (the mesh's first), the GN step split over the mesh
+            self.track_dev = self.map_dev = resolve_device(None, device)
+            self.split_devices = False
         with device_scope(self.track_dev):
             self.tracking = Tracking(cfg=cfg.tracking, intrinsics=intrinsics,
                                      img_size=tuple(img_size),
@@ -209,7 +219,7 @@ class ComoSeq:
             return None
 
         rgb = frame_tensor(rgb, self.track_dev)
-        if self.frame_batch == 2 and not self.split_devices:
+        if self.frame_batch == 2 and not self.split_devices and not m.uses_mesh:
             return self._step_batched(timestamp, rgb)
 
         kf_inserted = False
@@ -218,9 +228,10 @@ class ComoSeq:
         if kf_inserted or (timestamp - self._last_ref_ts > self.ref_period):
             self._refresh_reference(timestamp)
 
-        if self.split_devices:
-            # two stages, two dispatches: tracking on its device, then the
-            # GN iteration on mapping's (the reference's cuda:0 / cuda:1 mode)
+        if self.split_devices or m.uses_mesh:
+            # two dispatches: tracking on its device, then the GN iteration
+            # on mapping's (the reference's cuda:0 / cuda:1 mode) or split
+            # over the mesh (mapping.mesh_devices)
             with device_scope(self.track_dev):
                 self._pending.append(self.tracking.dispatch_frame(timestamp, rgb))
             with device_scope(self.map_dev):

@@ -3,6 +3,7 @@
 
 import inspect
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -82,9 +83,23 @@ def test_cli_log_and_state(run, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--viz"]], ids=["viz"])
-def test_cli_unported_options_raise(run, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["--dataset_type", "synthetic", "--device", "cpu", *flag])
+def test_cli_unported_options_raise(run, flag, tmp_path, monkeypatch):
+    """--viz, the last option that raised, runs: without open3d the CLI
+    attaches the snapshot viewer, which writes PNGs of the map under
+    results/viz of the working directory."""
+    from como_tpu_torch.viz.png import read_png
+    from como_tpu_torch.viz.viewer import SnapshotViewer
+
+    monkeypatch.setitem(sys.modules, "open3d", None)       # import raises ImportError
+    monkeypatch.chdir(tmp_path)
+    eng = cli.main(["--dataset_type", "synthetic", "--device", "cpu", "--max_frames", "12",
+                    "--config", run["cfg"], "--save_traj", "traj", *flag])
+    viewer = eng.viz_listener
+    assert isinstance(viewer, SnapshotViewer) and viewer.failures == 0
+    files = sorted((tmp_path / "results" / "viz").glob("map_*.png"))
+    assert len(files) == viewer._count >= 1
+    assert read_png(files[-1]).shape == (384, 512, 3)
+    assert (tmp_path / "traj" / "synthetic.txt").exists()
 
 
 def test_cli_runtime_pipeline_writes_a_trajectory(run, tmp_path, capsys):

@@ -271,3 +271,65 @@ def test_kernels_launch_on_their_tensors_device(cuda):
     assert got.device == dev1
     torch.testing.assert_close(got, kernels_cuda.cross_covariance_plain(*args),
                                rtol=1e-4, atol=1e-5)
+
+
+# --- multi-device mapping BA and the viewers on the card -------------------------------
+
+def test_mesh_devices_beyond_the_visible_cards_raise(cuda):
+    """A CUDA engine with more mesh devices than cards raises, naming
+    mapping.mesh_devices; it never shares a card or falls back to the CPU."""
+    from como_tpu_torch.runtime.seq import ComoSeq
+
+    cfg = _small_cfg()
+    cfg.mapping.mesh_devices = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match="mesh_devices"):
+        ComoSeq(cfg.validate(), np.eye(3, dtype=np.float32), (48, 64), device="cuda")
+
+
+@pytest.mark.parametrize("n", [2, 7])
+def test_sharded_step_on_the_card(cuda, n):
+    """The sharded step over n shards of cuda:0 on the demo window: the
+    single step's sigma bit for bit, its update to tests/test_multichip.py's
+    tolerances, and two sharded steps bitwise equal."""
+    from como_tpu_torch.odom import window as win
+    from como_tpu_torch.odom.backend import gn_step as gs
+    from como_tpu_torch.parallel import sharded
+    from como_tpu_torch.utils.demo import make_demo_state
+
+    dims = win.make_dims(num_kf=4, num_ow=4, M=16, img_size=(48, 64))
+    st, pairs, K = make_demo_state(dims, num_kf=3, num_ow=2, device=cuda)
+    sig = gs.SigmaStatic()
+    sc = gs._scaffold(st, K, dims)
+    dn = gs._dense_points(st.replace(P_lm=sc["P_lm_new"]), sc, K, dims)
+    res = [gs._photo_residual(st, sc, dn, *(a[s:s + 14 // n] for a in pairs), K, dims, 0.1)
+           for s in range(0, 14, 14 // n)]
+    whole = gs._photo_residual(st, sc, dn, *pairs, K, dims, 0.1)
+    assert torch.equal(gs.photo_sigma(res, cuda), gs.photo_sigma([whole], cuda))
+    st1, stats1 = gs._gn_step_impl(st, *pairs, K, dims, sig)
+    step = sharded.make_sharded_gn_step([cuda] * n, dims, sig)
+    st2, stats2 = step(st, *pairs, K)
+    st3, stats3 = step(st, *pairs, K)
+    torch.testing.assert_close(stats2.total_err, stats1.total_err, rtol=1e-3, atol=0)
+    torch.testing.assert_close(st2.kf_pose, st1.kf_pose, atol=1e-4, rtol=0)
+    torch.testing.assert_close(st2.P_lm, st1.P_lm, atol=1e-3, rtol=0)
+    assert all(torch.equal(getattr(st2, f), getattr(st3, f)) for f in st2.fields())
+
+
+def test_render_map_on_the_card(cuda):
+    """render_map on the card against the same call on the CPU: depth
+    within 1e-5 relative where both are set, colours within 1e-5 (the
+    shading's convolutions sum in another order) on all but a few pixels
+    (a projection's truncation can flip at the ulp level), two calls
+    bitwise equal."""
+    from como_tpu_torch.viz.renderer import render_map
+    from torch_testing import render_scene
+
+    args = [torch.from_numpy(np.array(a)) for a in render_scene(0)]
+    rgb_c, depth_c = render_map(*args, out_size=(96, 128))
+    rgb_g, depth_g = render_map(*(a.to(cuda) for a in args), out_size=(96, 128))
+    rgb_2, depth_2 = render_map(*(a.to(cuda) for a in args), out_size=(96, 128))
+    assert torch.equal(rgb_g, rgb_2) and torch.equal(depth_g, depth_2)
+    rgb_g, depth_g = rgb_g.cpu(), depth_g.cpu()
+    both = (depth_c > 0) & (depth_g > 0)
+    torch.testing.assert_close(depth_g[both], depth_c[both], rtol=1e-5, atol=0)
+    assert ((rgb_g - rgb_c).abs().amax(-1) > 1e-5).float().mean() < 0.01

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from como_tpu.config import ComoConfig as JConfig
 from como_tpu.data.synthetic import SyntheticDataset
@@ -156,8 +157,18 @@ def test_unet_prior_differs_from_analytic(runs, unet_runs):
 
 
 def test_engine_refuses_unported_options():
-    """mapping.mesh_devices >= 2 is the one engine option still unported."""
+    """mapping.mesh_devices asks for that many devices: a CUDA engine with
+    fewer visible cards raises before anything is built (here: none), as
+    the JAX package does (tests/test_multichip.py::test_mesh_devices_validation);
+    it never falls back to sharing a card or to the CPU.  A CPU engine's
+    mesh is that many shards on the CPU."""
+    from como_tpu_torch.odom.mapping import Mapping
+
     cfg = small_config(TConfig)
-    cfg.mapping.mesh_devices = 2
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        TSeq(cfg.validate(), np.eye(3, dtype=np.float32), IMG, device="cpu")
+    cfg.mapping.mesh_devices = max(2, torch.cuda.device_count() + 1)
+    cfg.validate()
+    K = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="mesh_devices"):
+        Mapping(cfg.mapping, K, IMG, device="cuda")
+    m = Mapping(cfg.mapping, K, IMG, device="cpu")
+    assert m.uses_mesh and m.mesh == [torch.device("cpu")] * cfg.mapping.mesh_devices
