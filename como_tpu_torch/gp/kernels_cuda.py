@@ -17,6 +17,18 @@ launch the kernel, or raise.  There is no fallback between the two.
 `cross_covariance.launches_by_shape` counts them by (N, M).
 `cross_covariance_reassociated` repeats the kernel's reordered arithmetic
 in plain PyTorch, for the CPU tests only.
+
+The gradient.  On CUDA, when grad mode is on and an input requires grad,
+`cross_covariance` goes through `CrossCovariance` (torch.autograd.Function):
+its forward is the same kernel launch, its backward the hand-written
+kernel `como_cross_covariance_bwd_f32` (same source), which recomputes the
+pair terms and sums the grads over anchors and over sites in a fixed
+order (two passes bitwise equal).  No TPU kernel corresponds: como_tpu
+differentiates the XLA twin.  `cross_covariance_bwd.launches` and
+`.launches_by_shape` count the backward's launches, apart from the
+forward's.  Without grad the direct launch stays, so inference launches
+exactly as before.  On the CPU, autograd of `cross_covariance_plain` is
+the gradient and the backward's plain twin (`cross_covariance_vjp_plain`).
 """
 
 from __future__ import annotations
@@ -126,8 +138,83 @@ def cross_covariance(x_n, e_n, x_m, e_m, scale) -> torch.Tensor:
     if isinstance(scale, torch.Tensor):
         raise TypeError("cross_covariance kernel takes scale as a Python float "
                         "(a device scalar would need a host sync)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_n, e_n, x_m, e_m)):
+        return CrossCovariance.apply(x_n, e_n, x_m, e_m, float(scale))
     return _launch(x_n, e_n, x_m, e_m, float(scale))
 
 
 cross_covariance.launches = 0
 cross_covariance.launches_by_shape = {}    # {(N, M): launches}
+
+
+class CrossCovariance(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient (CUDA)."""
+
+    @staticmethod
+    def forward(ctx, x_n, e_n, x_m, e_m, scale: float):
+        ctx.save_for_backward(x_n, e_n, x_m, e_m)
+        ctx.scale = scale
+        return _launch(x_n, e_n, x_m, e_m, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*cross_covariance_bwd(grad, *ctx.saved_tensors, ctx.scale), None)
+
+
+def cross_covariance_vjp_plain(grad, x_n, e_n, x_m, e_m, scale):
+    """(dL/dx_n, dL/de_n, dL/dx_m, dL/de_m) for dL/dK = grad: autograd of
+    the plain version (the backward kernel's reference)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x_n, e_n, x_m, e_m)]
+        K = cross_covariance_plain(*ins, scale)
+        return torch.autograd.grad(K, ins, grad)
+
+
+def _launch_bwd(grad, x_n, e_n, x_m, e_m, scale: float):
+    from como_tpu_torch import cuda_lib
+
+    N, M = x_n.shape[0], x_m.shape[0]
+    ts = [t.contiguous() for t in (grad, x_n, e_n, x_m, e_m)]
+    if tuple(ts[0].shape) != (N, M):
+        raise ValueError(f"cross_covariance_bwd: grad {tuple(grad.shape)} is not ({N}, {M})")
+    for t in ts:
+        if t.dtype != torch.float32 or t.device != x_n.device:
+            raise ValueError("cross_covariance_bwd kernel takes f32 tensors on one device")
+    if N == 0 or M == 0:        # nothing to launch, nothing counted
+        return tuple(torch.zeros(t.shape, dtype=torch.float32, device=x_n.device)
+                     for t in ts[1:])
+    # the kernels write every site's and every anchor's grads
+    outs = [torch.empty(t.shape, dtype=torch.float32, device=x_n.device) for t in ts[1:]]
+    lib = cuda_lib.lib("gp_kernels")
+    lib.como_cross_covariance_bwd_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.como_cross_covariance_bwd_scratch.restype = ctypes.c_longlong
+    scratch = torch.empty(lib.como_cross_covariance_bwd_scratch(N, M), dtype=torch.float32,
+                          device=x_n.device)
+    fn = lib.como_cross_covariance_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x_n.device):    # the launch goes to the current device
+        err = fn(*[cuda_lib.ptr(t) for t in ts], ctypes.c_float(scale), N, M,
+                 *[cuda_lib.ptr(t) for t in outs], cuda_lib.ptr(scratch),
+                 cuda_lib.stream_ptr(x_n.device))
+    cuda_lib.check(err, "como_cross_covariance_bwd_f32")
+    cross_covariance_bwd.launches += 1
+    by_shape = cross_covariance_bwd.launches_by_shape
+    by_shape[(N, M)] = by_shape.get((N, M), 0) + 1
+    return tuple(outs)
+
+
+def cross_covariance_bwd(grad, x_n, e_n, x_m, e_m, scale):
+    """(dL/dx_n, dL/de_n, dL/dx_m, dL/de_m) for dL/dK = grad.  CUDA tensors
+    launch the backward kernel; CPU tensors use autograd of the plain
+    version."""
+    if x_n.device.type == "cpu":
+        return cross_covariance_vjp_plain(grad, x_n, e_n, x_m, e_m, scale)
+    if x_n.device.type != "cuda":
+        raise ValueError(f"cross_covariance_bwd: unsupported device {x_n.device}")
+    return _launch_bwd(grad, x_n, e_n, x_m, e_m, float(scale))
+
+
+cross_covariance_bwd.launches = 0
+cross_covariance_bwd.launches_by_shape = {}    # {(N, M): launches}

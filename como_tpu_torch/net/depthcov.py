@@ -40,6 +40,15 @@ def load_params(path: str, device="cuda") -> dict:
     return {k: v.to(device) for k, v in unet_mod.unet_state_dict_from_flax(tree).items()}
 
 
+def save_params(model_or_state_dict, path: str) -> None:
+    """Write a UNet's parameters (the module or its state_dict) as a flax
+    msgpack checkpoint that either package's load_params reads."""
+    sd = model_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    flax_msgpack.save(path, unet_mod.flax_tree_from_unet_state_dict(sd))
+
+
 class DepthCovPrior:
     def __init__(self, mode: str = "analytic", model_path: str = "",
                  network_size=NETWORK_SIZE, scale: float = 1.0, device="cuda",

@@ -4,8 +4,9 @@ ImageNet normalization, residual conv blocks with GroupNorm(16) +
 LeakyReLU, maxpool-2 encoder, bilinear-upsample decoder with skip concat,
 per-level 1x1 heads and the covariance activation.  Layout is NCHW with
 OIHW weights; submodules carry the flax names (`base`, `down{i}`,
-`up{i}_conv`, `up{i}_block`, `head{i}`), and unet_state_dict_from_flax
-carries a flax parameter tree across.
+`up{i}_conv`, `up{i}_block`, `head{i}`); unet_state_dict_from_flax
+carries a flax parameter tree across and flax_tree_from_unet_state_dict
+carries it back.
 
 Precision follows the flax module step by step, by explicit casts at each
 call (not torch.autocast, whose op lists would also move the skip sum and
@@ -143,6 +144,32 @@ def unet_state_dict_from_flax(tree: dict) -> dict:
         out[f"{name}.norm.weight"] = torch.from_numpy(np.array(sub["norm"]["scale"]))
         out[f"{name}.norm.bias"] = torch.from_numpy(np.array(sub["norm"]["bias"]))
     return out
+
+
+def flax_tree_from_unet_state_dict(state_dict: dict) -> dict:
+    """The inverse of unet_state_dict_from_flax: a `UNet` state_dict as a
+    flax parameter tree {"params": {...}} of f32 numpy arrays (OIHW -> HWIO,
+    GroupNorm `weight` -> `scale`), keys sorted as flax writes them."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif leaf == "weight" and path[-1] == "norm":
+            leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"{key}: not a UNet parameter")
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    def ordered(tree):
+        return {k: ordered(tree[k]) if isinstance(tree[k], dict) else tree[k]
+                for k in sorted(tree)}
+
+    return {"params": ordered(params)}
 
 
 def init_unet_(model: UNet, generator: torch.Generator) -> None:

@@ -14,6 +14,23 @@ matmuls give bitwise-equal results for equal inputs.  The landmark-space
 expansion is the same one-hot selection matmul as in the JAX package.
 A failed Cholesky yields NaN (linalg.cholesky) and the non-finite step is
 zeroed, as in the JAX package.
+
+The per-pair halves (_photo_residual, _photo_pair_blocks) give each pair
+a result that does not depend on the other pairs of the call, bit for bit,
+so that the sharded step (parallel/sharded.py), whose shards get fewer
+pairs, equals the single step on the card too: on CUDA a batched
+contraction's rounding depends on the batch count (cuBLAS picks its kernel
+by it, seen on an H100 in the tap sum of ops/interp.bilinear_sample_frames
+and the per-pair dot products here).  So, on every device: per-pose terms
+are computed over every frame and then gathered; contractions over 3 to 6
+terms are elementwise multiply-adds in a fixed order (_mac, _csum); the
+contractions over a pair's dense sites run in chunks of
+pair_chunk(dims.P) pairs (_pair_einsum), each call with the same shapes.
+The chunk is the most even split of the window's pairs into chunks of at
+most PAIR_CHUNK, so the default window (64 pairs) makes one call per
+contraction, as an unchunked einsum does; the last call of a longer window
+overlaps the one before it, and a shard with fewer pairs pads them with
+zero pairs up to a chunk.
 """
 
 from __future__ import annotations
@@ -53,6 +70,52 @@ class SigmaStatic(NamedTuple):
     lm_step_frac: float = 0.25
     occlusion_thresh: float = 0.1
     estimate_affine: bool = True
+
+
+PAIR_CHUNK = 64
+
+
+def pair_chunk(P: int) -> int:
+    """The pair-chunk size of a window with P pairs: the most even split
+    into chunks of at most PAIR_CHUNK (see module doc)."""
+    n = -(-P // PAIR_CHUNK)
+    return -(-P // n)
+
+
+def _mac(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """sum_k x[..., k, None] * a[..., k, :] by elementwise multiply-adds,
+    k in order (see module doc)."""
+    out = x[..., 0, None] * a[..., 0, :]
+    for k in range(1, x.shape[-1]):
+        out = torch.addcmul(out, x[..., k, None], a[..., k, :])
+    return out
+
+
+def _pair_einsum(eq: str, chunk: int, *ops: torch.Tensor) -> torch.Tensor:
+    """torch.einsum over operands whose leading dim is the pair, in calls of
+    exactly `chunk` pairs, so that each pair's result is that of such a
+    call, however many pairs the caller has (see module doc).  The calls
+    start at every multiple of `chunk` but the last, which ends at the last
+    pair and keeps only the rows the one before it lacks (no operand is
+    copied); fewer than `chunk` pairs (a shard's) are padded with zero pairs."""
+    P = ops[0].shape[0]
+    if P < chunk:
+        ops = tuple(torch.cat([o, o.new_zeros((chunk - P,) + o.shape[1:])]) for o in ops)
+    n = max(P, chunk)
+    starts = list(range(0, n - chunk, chunk)) + [n - chunk]
+    parts = [torch.einsum(eq, *(o[c:c + chunk] for o in ops)) for c in starts]
+    if len(parts) == 1:
+        return parts[0][:P]
+    parts[-1] = parts[-1][starts[-2] + 2 * chunk - n:]
+    return torch.cat(parts)
+
+
+def _csum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over dim 1 (the channels) in order."""
+    out = x[:, 0]
+    for c in range(1, x.shape[1]):
+        out = out + x[:, c]
+    return out
 
 
 def _onehot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -210,14 +273,14 @@ def _photo_residual(state, sc, dn, pairs_ref, pairs_tgt, pairs_valid, K_intr,
     R_i = state.kf_pose[i, :3, :3]
     aff_i = state.kf_aff[i]
 
-    pose_j = pose_f[j]
     aff_j = aff_f[j]
-    Tcw_j = lie.invert_se3(pose_j)
+    # per frame, then per pair (a gather): the same bits however the pairs split
+    Tcw_j = lie.invert_se3(pose_f)[j]
     Rcw_j = Tcw_j[:, :3, :3]
     tcw_j = Tcw_j[:, :3, 3]
-    Adj_j = lie.adjoint(pose_j)
+    Adj_j = lie.adjoint(pose_f)[j]
 
-    Pcj = torch.einsum("pij,pnj->pni", Rcw_j, Pw_n) + tcw_j[:, None]
+    Pcj = _mac(Pw_n, Rcw_j.transpose(-1, -2)[:, None]) + tcw_j[:, None]
     zj = Pcj[..., 2]
     zj_safe = torch.where(zj > 1e-6, zj, torch.ones_like(zj))
     px = fx * Pcj[..., 0] / zj_safe + cx
@@ -262,7 +325,7 @@ def _photo_pair_blocks(res, sigma, K_intr, dims: WindowDims, estimate_affine: bo
     px, py, zj_safe, gx, gy = (res[k] for k in ("px", "py", "zj_safe", "gx", "gy"))
     Rcw_j, Adj_j, R_i, Pw_n, Pc_i, u_i, q_i, v_i = (
         res[k] for k in ("Rcw_j", "Adj_j", "R_i", "Pw_n", "Pc_i", "u_i", "q_i", "v_i"))
-    P = i.shape[0]
+    P, chunk = i.shape[0], pair_chunk(dims.P)
     w = _huber_w(r / sigma) * valid_c / (sigma * sigma * C)
     photo_err = torch.sum(w * r * r)
 
@@ -274,15 +337,15 @@ def _photo_pair_blocks(res, sigma, K_intr, dims: WindowDims, estimate_affine: bo
         -(a_img[..., 0] * (pxc - cx) / fx + a_img[..., 1] * (pyc - cy) / fy),
     ], -1)                                                    # (P, C, ND, 3)
 
-    dIt_dPwn = torch.einsum("pcna,pai->pcni", dIt_dPcj, Rcw_j)
-    s = torch.einsum("pcni,pni->pcn", dIt_dPwn, u_i)
+    dIt_dPwn = _mac(dIt_dPcj, Rcw_j[:, None, None])
+    s = _mac(dIt_dPwn, u_i[:, None, :, :, None])[..., 0]
 
-    aR = torch.einsum("pcni,pij->pcnj", dIt_dPwn, R_i)
+    aR = _mac(dIt_dPwn, R_i[:, None, None])
     rot_i = torch.linalg.cross(Pc_i[:, None].expand(aR.shape), aR)
     J_ti = torch.cat([rot_i, aR], -1) + s[..., None] * q_i[:, None]
     pre = torch.cat([torch.linalg.cross(Pw_n[:, None].expand(dIt_dPwn.shape),
                                         dIt_dPwn), dIt_dPwn], -1)
-    J_tj = -torch.einsum("pcnj,pjl->pcnl", pre, Adj_j)
+    J_tj = -_mac(pre, Adj_j[:, None, None])
 
     one = torch.ones_like(vals_scaled)
     if estimate_affine:
@@ -293,21 +356,21 @@ def _photo_pair_blocks(res, sigma, K_intr, dims: WindowDims, estimate_affine: bo
     J8_j = torch.cat([J_tj, -vs_col[..., None], one_col[..., None]], -1)
 
     Jw_i = J8_i * w[..., None]
-    H_ii = torch.einsum("pcnk,pcnl->pkl", Jw_i, J8_i)
-    H_jj = torch.einsum("pcnk,pcnl->pkl", J8_j * w[..., None], J8_j)
-    H_ij = torch.einsum("pcnk,pcnl->pkl", Jw_i, J8_j)
-    g_i = -torch.einsum("pcnk,pcn->pk", J8_i, w * r)
-    g_j = -torch.einsum("pcnk,pcn->pk", J8_j, w * r)
+    H_ii = _pair_einsum("pcnk,pcnl->pkl", chunk, Jw_i, J8_i)
+    H_jj = _pair_einsum("pcnk,pcnl->pkl", chunk, J8_j * w[..., None], J8_j)
+    H_ij = _pair_einsum("pcnk,pcnl->pkl", chunk, Jw_i, J8_j)
+    g_i = -_pair_einsum("pcnk,pcn->pk", chunk, J8_i, w * r)
+    g_j = -_pair_einsum("pcnk,pcn->pk", chunk, J8_j, w * r)
 
     ws = w * s
-    wss_n = torch.sum(ws * s, 1)
-    wsr_n = torch.sum(ws * r, 1)
-    Hzm_p = torch.einsum("pnm,pnl->pml", v_i * wss_n[..., None], v_i)
-    Hi_zm = torch.einsum("pcnk,pcnm->pkm", J8_i * ws[..., None],
+    wss_n = _csum(ws * s)
+    wsr_n = _csum(ws * r)
+    Hzm_p = _pair_einsum("pnm,pnl->pml", chunk, v_i * wss_n[..., None], v_i)
+    Hi_zm = _pair_einsum("pcnk,pcnm->pkm", chunk, J8_i * ws[..., None],
                          v_i[:, None].expand(P, C, ND, M))
-    Hj_zm = torch.einsum("pcnk,pcnm->pkm", J8_j * ws[..., None],
+    Hj_zm = _pair_einsum("pcnk,pcnm->pkm", chunk, J8_j * ws[..., None],
                          v_i[:, None].expand(P, C, ND, M))
-    g_zm_p = -torch.einsum("pn,pnm->pm", wsr_n, v_i)
+    g_zm_p = -_pair_einsum("pn,pnm->pm", chunk, wsr_n, v_i)
     return dict(i=i, j=j, H_ii=H_ii, H_jj=H_jj, H_ij=H_ij, g_i=g_i, g_j=g_j, Hzm_p=Hzm_p,
                 Hi_zm=Hi_zm, Hj_zm=Hj_zm, g_zm_p=g_zm_p, photo_err=photo_err)
 

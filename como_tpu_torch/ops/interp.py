@@ -70,7 +70,13 @@ def bilinear_sample_frames(imgs: torch.Tensor, j: torch.Tensor,
     gidx = j.to(torch.int64)[None, :, None] * (H * W) + idx
     flat = imgs.transpose(0, 1).reshape(C, F * H * W)
     taps = flat[:, gidx]                                         # (C, 4, P, N)
-    return torch.einsum("ctpn,tpn->pcn", taps, ws)
+    # the taps are summed by elementwise multiply-adds in order, so that a
+    # pair's samples do not depend on how many pairs the call has (a batched
+    # contraction's rounding does on CUDA; see odom/backend/gn_step.py)
+    out = taps[:, 0] * ws[0]
+    for t in range(1, 4):
+        out = torch.addcmul(out, taps[:, t], ws[t])
+    return out.transpose(0, 1)
 
 
 def _resize_weights(in_size: int, out_size: int, dtype, device) -> torch.Tensor:

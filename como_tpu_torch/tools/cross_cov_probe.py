@@ -192,7 +192,7 @@ def main() -> int:
     for shape in SHAPES:
         a = inputs[shape]
         for name in order + order[::-1]:
-            ms, _ = device_ms(lambda: calls[name](*a, 1.0))
+            ms, _, _ = device_ms(lambda: calls[name](*a, 1.0))
             emit(what="time", variant=name, shape=list(shape), device_ms=ms, card=card)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

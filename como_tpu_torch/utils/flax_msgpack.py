@@ -154,16 +154,19 @@ def _pack_into(out: list, obj) -> None:
     elif isinstance(obj, (bool, np.bool_)):
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, int):
-        if 0 <= obj <= 0x7F:
-            out.append(bytes([obj]))
-        elif -32 <= obj < 0:
-            out.append(struct.pack("b", obj))
-        elif -(1 << 63) <= obj < 1 << 63:
-            out.append(b"\xd3" + struct.pack(">q", obj))
-        elif 0 < obj < 1 << 64:
-            out.append(b"\xcf" + struct.pack(">Q", obj))
-        else:
-            raise ValueError("msgpack: int out of range")
+        # the shortest form, as msgpack-python (and so flax) writes it
+        if -32 <= obj <= 0x7F:
+            out.append(struct.pack("b", obj) if obj < 0 else bytes([obj]))
+            return
+        forms = ((b"\xcc", ">B"), (b"\xcd", ">H"), (b"\xce", ">I"), (b"\xcf", ">Q")) \
+            if obj > 0 else ((b"\xd0", ">b"), (b"\xd1", ">h"), (b"\xd2", ">i"), (b"\xd3", ">q"))
+        for code, fmt in forms:
+            try:
+                out.append(code + struct.pack(fmt, obj))
+                return
+            except struct.error:            # too large for this form
+                pass
+        raise ValueError("msgpack: int out of range")
     elif isinstance(obj, float):
         out.append(b"\xcb" + struct.pack(">d", obj))
     elif isinstance(obj, str):

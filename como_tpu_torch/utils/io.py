@@ -1,14 +1,14 @@
 """Trajectory I/O + ATE evaluation (port of como_tpu/utils/io.py).
 
-TUM-format trajectory writer and the scale-aligned ATE RMSE (Horn/Umeyama
-alignment).  numpy only.
+TUM-format trajectory writer and reader, and the scale-aligned ATE RMSE
+(Horn/Umeyama alignment).  numpy only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from como_tpu_torch.geometry.lie import pose_to_tq
+from como_tpu_torch.geometry.lie import pose_to_tq, tq_to_pose
 
 
 def save_traj(filename: str, timestamps, poses: np.ndarray) -> None:
@@ -17,6 +17,13 @@ def save_traj(filename: str, timestamps, poses: np.ndarray) -> None:
         for ts, T in zip(timestamps, poses):
             tq = pose_to_tq(np.asarray(T))
             f.write("%.4f %.4f %.4f %.4f %.4f %.4f %.4f %.4f\n" % (ts, *tq))
+
+
+def load_traj(filename: str):
+    """(timestamps (n,), poses (n, 4, 4)) of a TUM trajectory file (a file
+    of one line too)."""
+    data = np.loadtxt(filename, ndmin=2)
+    return data[:, 0], tq_to_pose(data[:, 1:8])
 
 
 def umeyama_align(src: np.ndarray, dst: np.ndarray, with_scale: bool = True):

@@ -12,6 +12,8 @@ plain version only in operation order and FMA contraction; the
 cross-covariance kernel also splits the fourth root and uses the
 rcp/sqrt/ex2 approximations (a few ulp each, ~1e-6 abs on K <= ~1)."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +161,44 @@ def test_gn_step_bitwise_repeatable(cuda):
     b, sb = gn_step._gn_step_impl(st, ref, tgt, val, K, dims, gn_step.SigmaStatic())
     for f in a.fields():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_gn_step_on_the_card_matches_the_cpu_step(cuda):
+    """The GN system and step on the card against the CPU's on the same
+    window (test_torch_gn_step's demo window, built on the CPU), at that
+    test's JAX parity tolerances: the Jacobi-scaled system within 1e-4,
+    poses and affine within 1e-4.  Landmarks move along the window's weak
+    directions (Jacobi-scaled condition ~2e6), where two f32 solves agree
+    only to ~cond * eps ~ 1e-1 of the step (test_torch_gn_step); the card's
+    Cholesky, matmuls and cross-covariance kernel round differently from
+    the CPU's, so they are held to a tenth of the CPU's largest landmark
+    step."""
+    from como_tpu_torch.odom import window as win
+    from como_tpu_torch.odom.backend import gn_step as gs
+    from como_tpu_torch.utils.demo import make_demo_state
+
+    dims = win.make_dims(num_kf=4, num_ow=3, M=16, img_size=(48, 64))
+    st, pairs, K = make_demo_state(dims, num_kf=3, num_ow=2, device="cpu")
+    sig = gs.SigmaStatic(occlusion_thresh=0.1)
+    st_c = st.replace(**{f: getattr(st, f).to(cuda) for f in st.fields()})
+    args_c = (*(a.to(cuda) for a in pairs), K.to(cuda), dims, sig)
+    H, g, e = gs.gn_system(st, *pairs, K, dims, sig)
+    Hc, gc, ec = (t.cpu() for t in gs.gn_system(st_c, *args_c))
+    d = torch.sqrt(torch.clamp(torch.diagonal(H).abs(), min=1e-20))
+    np.testing.assert_allclose((Hc / d[:, None] / d).numpy(), (H / d[:, None] / d).numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose((gc / d).numpy(), (g / d).numpy(), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(float(ec), float(e), rtol=1e-4)
+    s_cpu, g_cpu = gs._gn_step_impl(st, *pairs, K, dims, sig)
+    s_gpu, g_gpu = gs._gn_step_impl(st_c, *args_c)
+    for f in ("kf_pose", "ow_pose", "kf_aff"):
+        np.testing.assert_allclose(getattr(s_gpu, f).cpu().numpy(),
+                                   getattr(s_cpu, f).numpy(), atol=1e-4, err_msg=f)
+    lm_step = float((s_cpu.P_lm - st.P_lm).abs().max())
+    np.testing.assert_allclose(s_gpu.P_lm.cpu().numpy(), s_cpu.P_lm.numpy(),
+                               atol=0.1 * lm_step)
+    for a, b in zip(g_gpu, g_cpu):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-2, atol=1e-6)
 
 
 # --- the runtimes on the card (48x64, 4 KF / 4 OW / 16 anchors) -----------------------
@@ -333,3 +373,110 @@ def test_render_map_on_the_card(cuda):
     both = (depth_c > 0) & (depth_g > 0)
     torch.testing.assert_close(depth_g[both], depth_c[both], rtol=1e-5, atol=0)
     assert ((rgb_g - rgb_c).abs().amax(-1) > 1e-5).float().mean() < 0.01
+
+
+# --- the cross-covariance's backward kernel, the trainer on the card -------------------
+
+def _bwd_close(got, want):
+    """Within 1e-5 abs + 1e-4 of the largest |grad| of the tensor."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 + 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("N,M", [(64, 64), (1024, 64), (49152, 64), (37, 33), (1, 5)])
+def test_cross_covariance_bwd_kernel(cuda, N, M):
+    """The backward kernel against autograd of the plain version, twice
+    bitwise equal; its launches counted apart from the forward's."""
+    from como_tpu_torch.gp import kernels_cuda
+
+    g = torch.Generator().manual_seed(N + M)
+    args = (*_sites(g, N, cuda), *_sites(g, M, cuda), 1.3)
+    grad = torch.randn((N, M), generator=g).to(cuda)
+    fwd, n0 = kernels_cuda.cross_covariance.launches, kernels_cuda.cross_covariance_bwd.launches
+    got = kernels_cuda.cross_covariance_bwd(grad, *args)
+    again = kernels_cuda.cross_covariance_bwd(grad, *args)
+    torch.cuda.synchronize()
+    assert kernels_cuda.cross_covariance_bwd.launches == n0 + 2
+    assert kernels_cuda.cross_covariance_bwd.launches_by_shape[(N, M)] >= 2
+    assert kernels_cuda.cross_covariance.launches == fwd
+    _bwd_close(got, kernels_cuda.cross_covariance_vjp_plain(grad, *args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_cross_covariance_grad_through_the_kernel(cuda):
+    """With grad-requiring inputs the CUDA wrapper returns a tensor with a
+    grad_fn whose backward is the kernel; K_mm passes the same anchors as
+    both arguments and autograd sums the two grads (as the plain version's
+    autograd does); a non-contiguous upstream grad is taken.  Without grad
+    the direct launch stays: no grad_fn, no backward launch."""
+    from como_tpu_torch.gp import kernels_cuda
+
+    g = torch.Generator().manual_seed(7)
+    x_m, e_m = (t.requires_grad_(True) for t in _sites(g, 64, cuda))
+    x_n, e_n = (t.requires_grad_(True) for t in _sites(g, 1024, cuda))
+    n_bwd = kernels_cuda.cross_covariance_bwd.launches
+    K_mm = kernels_cuda.cross_covariance(x_m, e_m, x_m, e_m, 1.0)
+    K_nm = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.0)
+    assert K_mm.grad_fn is not None and K_nm.grad_fn is not None
+    G_mm = torch.randn((64, 64), generator=g).to(cuda).T       # strided
+    G_nm = torch.randn((1024, 64), generator=g).to(cuda)
+    got = torch.autograd.grad((K_mm * G_mm).sum() + (K_nm * G_nm).sum(), (x_m, e_m, x_n, e_n))
+    assert kernels_cuda.cross_covariance_bwd.launches == n_bwd + 2
+    ins = [t.detach().requires_grad_(True) for t in (x_m, e_m, x_n, e_n)]
+    L = ((kernels_cuda.cross_covariance_plain(ins[0], ins[1], ins[0], ins[1], 1.0) * G_mm).sum()
+         + (kernels_cuda.cross_covariance_plain(ins[2], ins[3], ins[0], ins[1], 1.0)
+            * G_nm).sum())
+    _bwd_close(got, torch.autograd.grad(L, ins))
+    n_fwd = kernels_cuda.cross_covariance.launches
+    with torch.no_grad():
+        K = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.0)
+    K2 = kernels_cuda.cross_covariance(x_n.detach(), e_n.detach(), x_m.detach(),
+                                       e_m.detach(), 1.0)
+    assert K.grad_fn is None and K2.grad_fn is None
+    assert kernels_cuda.cross_covariance.launches == n_fwd + 2
+    assert kernels_cuda.cross_covariance_bwd.launches == n_bwd + 2
+
+
+def test_train_step_on_the_card(cuda):
+    """A few trainer steps at full width with bf16 convolutions: finite
+    loss and gradient norm, the backward kernel launched, the EMA saved
+    and read back as the UNet prior."""
+    from como_tpu_torch.gp import kernels_cuda
+    from como_tpu_torch.net.depthcov import DepthCovPrior
+    from como_tpu_torch.train import train_depthcov
+
+    n_bwd = kernels_cuda.cross_covariance_bwd.launches
+    out = str(Path(__file__).resolve().parents[1] / "chiprun_out" / "test_train.msgpack")
+    res = train_depthcov.main(["--steps", "4", "--val_every", "3", "--out", out])
+    assert np.all(np.isfinite(res["losses"])) and np.all(np.isfinite(res["grad_norms"]))
+    assert res["selected"] == "mse" and np.isfinite(res["best_score"])
+    assert kernels_cuda.cross_covariance_bwd.launches >= n_bwd + 2 * 4
+    prior = DepthCovPrior("unet", out, device=cuda)
+    cov = prior.cov_params(torch.rand((1, 3, 192, 256), device=cuda))
+    assert cov.shape == (3, 192, 256) and bool(torch.isfinite(cov).all())
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("window", ["default", "stress"])
+def test_sharded_step_bitwise_on_the_card(cuda, n, window):
+    """The sharded GN step over n shards of cuda:0 equals the single step
+    bit for bit on a full-size demo window (the default's 64 pairs, and
+    chip_smoke's 18 KF / 48 OW stress window, 136 pairs in chunks of 46):
+    the per-pair blocks do not depend on how many pairs a call gets."""
+    from como_tpu_torch.odom import window as win
+    from como_tpu_torch.odom.backend import gn_step as gs
+    from como_tpu_torch.parallel import sharded
+    from como_tpu_torch.utils.demo import make_demo_state
+
+    if window == "default":
+        dims, num_kf = win.make_dims(), 9
+    else:
+        dims, num_kf = win.make_dims(num_kf=18, num_ow=48), 18
+        dims = dims._replace(P=-(-dims.P // 8) * 8)
+    st, pairs, K = make_demo_state(dims, num_kf=num_kf, num_ow=8, device=cuda)
+    sig = gs.SigmaStatic()
+    st1, _ = gs._gn_step_impl(st, *pairs, K, dims, sig)
+    st2, _ = sharded.make_sharded_gn_step([cuda] * n, dims, sig)(st, *pairs, K)
+    for f in ("kf_pose", "ow_pose", "P_lm", "kf_aff", "ow_aff"):
+        assert torch.equal(getattr(st2, f), getattr(st1, f)), f

@@ -97,3 +97,18 @@ def test_reader_rejects(raw):
 def test_writer_rejects(obj):
     with pytest.raises(ValueError):
         fm.packb(obj)
+
+
+@pytest.mark.parametrize("value", [0, 127, 128, 255, 256, 65535, 65536, 2 ** 32 - 1, 2 ** 32,
+                                   2 ** 64 - 1, -1, -32, -33, -128, -129, -32768, -32769,
+                                   -2 ** 31, -2 ** 31 - 1, -2 ** 63])
+def test_ints_take_msgpacks_shortest_form(value):
+    """Integers are written as msgpack-python writes them (so an array's
+    shape, and a whole checkpoint, come out byte for byte as flax's)."""
+    assert fm.packb(value) == msgpack.packb(value)
+    assert fm.unpackb(fm.packb(value)) == value
+
+
+def test_checkpoint_written_as_flax_writes_it():
+    tree = fm.load(CKPT)
+    assert fm.packb(tree) == open(CKPT, "rb").read()

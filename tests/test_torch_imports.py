@@ -25,7 +25,9 @@ def test_no_jax_in_port():
     assert len(mods) > 50
     for new in ("runtime.queues", "runtime.placement", "runtime.pipeline", "utils.demo",
                 "odom.backend.extra_factors", "parallel.sharded", "viz.geometry",
-                "viz.renderer", "viz.viewer", "viz.png"):
+                "viz.renderer", "viz.viewer", "viz.png", "train.loss", "train.data",
+                "train.optim", "train.train_depthcov", "train.select_checkpoint",
+                "tools.gn_step_time"):
         assert f"como_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -40,11 +42,12 @@ def test_no_jax_in_port():
 
 def test_import_rule():
     """The package imports torch, numpy, yaml, the standard library and
-    itself; cv2 and pyrealsense2 only inside data/datasets.py, open3d only
+    itself; cv2 and pyrealsense2 only inside data/datasets.py (and cv2
+    inside train/data.py), open3d only
     inside viz/viewer.py (the probe under tools/ also borrows the timing
     helpers of chip_smoke.py)."""
     allowed = {"torch", "numpy", "yaml", "como_tpu_torch"}
-    only_in = {"data/datasets.py": {"cv2", "pyrealsense2"},
+    only_in = {"data/datasets.py": {"cv2", "pyrealsense2"}, "train/data.py": {"cv2"},
                "viz/viewer.py": {"open3d"},
                "tools/cross_cov_probe.py": {"chip_smoke"}}
     pkg = Path(como_tpu_torch.__file__).parent

@@ -58,6 +58,24 @@ def test_histogram_median_shards_bitwise(seed, cuts):
     assert torch.equal(sig, treduce.fast_mad_sigma(x[:2], m[:2]))
 
 
+@pytest.mark.parametrize("P", [64, 136, 288, 17, 130])
+def test_pair_einsum_chunks_are_one_einsum(P):
+    """The chunked contraction of the per-pair blocks (calls of exactly
+    pair_chunk pairs: the last one overlapping, a shard's few pairs padded)
+    is the one einsum over all pairs; the chunk is the most even split of
+    the default (64), stress (136) and radius (288) windows' pairs."""
+    window_P = {17: 136, 130: 130}.get(P, P)
+    chunk = tgn.pair_chunk(window_P)
+    assert chunk == {64: 64, 136: 46, 288: 58, 130: 44}[window_P]
+    g = torch.Generator().manual_seed(P)
+    a, b = (torch.randn((P, 2, 5, 8), generator=g, dtype=torch.float64) for _ in range(2))
+    for eq, ops in (("pcnk,pcnl->pkl", (a, b)), ("pn,pnm->pm", (a[:, 0, :, 0], a[:, 1]))):
+        got = tgn._pair_einsum(eq, chunk, *ops)
+        want = torch.einsum(eq, *ops)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("occl", [0.1, 0.0])
 def test_split_photo_is_the_inline_photo(occl):
     """_photo (residual half, sigma, per-pair blocks, grids) computes
