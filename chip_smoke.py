@@ -73,6 +73,17 @@ Phases, in this order, one JSON line each:
              reversal of its pairs is reported beside); then ComoSeq with
              mapping.mesh_devices: 2 (raises on a one-card host; runs the
              plane sequence on two or more cards)
+  entry_points  each measurement entry point's main(argv) in this process at a
+             small depth, no --device (python -m como_tpu_torch.bench: every
+             cell, seed 0 at 30 frames, a 25-frame probe engine; eval_matrix,
+             run_full on the plane sequence; bench_runtimes, profile_e2e,
+             profile_gn, probe_pair_throughput), reports under
+             chiprun_out/entry_points/: seconds and launches of each; the bench
+             line's keys, finite values, positive rates, ATE < 0.5 m,
+             iterations per level within [1, max_iter], both kernels launched;
+             the plane ATEs under the guard (eval_matrix's equal to the plane
+             phase's where ComoConfig() is configs/como.yml); finite rows,
+             stage times and rates
   total      seconds the script took
 Then the kernel table line {"kernels": [...]}, the nvidia-smi card line,
 and last {"ok": true, "device": {...}}.  Any failed check raises and the
@@ -86,6 +97,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -135,6 +147,17 @@ UNET_BF16_FLOOR = (2e-2, 0.5)
 TRAIN_STEPS = 60
 TRAIN_VAL_EVERY = 20
 INFERENCE_KERNELS = ("cross_covariance", "sampler_downdate")
+# The entry_points phase: python -m como_tpu_torch.bench's line has the JAX
+# bench's keys (bench.py) less the transport ones, plus tracking_iters_per_level
+# and card; its e2e cell runs ENTRY_BENCH_FRAMES frames of one seed.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA_KEYS = {"mapping_gn_iter_ms", "gn_vs_50ms_budget", "stress", "e2e_fps",
+                    "e2e_median_ms", "e2e_p90_ms", "e2e_ate_cm", "e2e_per_seed",
+                    "frame_program_throughput_fps", "e2e_dispatch_depth", "e2e_frame_batch",
+                    "e2e_world", "device", "tracking_iters_per_level", "card"}
+BENCH_SEED_KEYS = {"fps", "ate_cm", "median_ms", "p90_ms", "frames_tracked", "seed", "n_runs",
+                   "path_len_m"}
+ENTRY_BENCH_FRAMES = 30
 
 
 T_START = time.perf_counter()
@@ -383,6 +406,149 @@ def render_case(viz, K_intr, dev) -> dict:
     out["ok"] = (out["two_renders_bitwise_equal"] and out["depth_max_rel_err"] <= VIZ_DEPTH_RTOL
                  and colour_share <= VIZ_COLOUR_SHARE and out["covered_share"] > 0)
     return out
+
+
+def run_tool(main_fn, argv, out_name: str):
+    """A measurement entry point's main(argv), in this process, between a
+    reset and a read of the launch counts.  Its stdout goes to
+    chiprun_out/entry_points/<out_name>.txt.  Returns (seconds, stdout
+    lines, {kernel: launches})."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, _ = read_launches()
+    (OUT / "entry_points" / f"{out_name}.txt").write_text(out.getvalue())
+    if rc != 0:
+        raise SystemExit(f"{out_name} {' '.join(argv)} returned {rc}")
+    return seconds, out.getvalue().strip().splitlines(), launches
+
+
+def all_finite(x) -> bool:
+    """Every number in a JSON value is finite."""
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(all_finite(v) for v in x)
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return math.isfinite(x)
+    return True
+
+
+def entry_points(cfg, plane_ate=None) -> dict:
+    """The entry_points phase: each measurement entry point's main(argv) at a
+    small depth on the card (python -m como_tpu_torch.bench and the tools
+    under como_tpu_torch/tools/), with its checks.  `plane_ate` is the plane
+    phase's ATE: eval_matrix runs the same sequence, so where ComoConfig()
+    is configs/como.yml its ATE must be that one to the last digit.
+    Returns {module: report}; raises SystemExit on a failed check."""
+    from como_tpu_torch import bench
+    from como_tpu_torch.config import ComoConfig
+    from como_tpu_torch.tools import (bench_runtimes, eval_matrix, probe_pair_throughput,
+                                      profile_e2e, profile_gn, run_full)
+
+    out_dir = OUT / "entry_points"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rep = {}
+
+    # bench: every cell, seed 0 at 30 frames, a few timed calls per cell
+    secs, lines, launches = run_tool(bench.main, [
+        "--seeds", "0", "--frames", str(ENTRY_BENCH_FRAMES), "--runs", "1",
+        "--track_iters", "3", "--gn_iters", "3", "--stress_reps", "1", "--stress_iters", "2",
+        "--probe_frames", "25", "--probe_n", "5", "--probe_bursts", "1"], "bench")
+    line = json.loads(lines[-1])
+    ex = line["extra"]
+    seed = ex["e2e_per_seed"][0] if ex["e2e_per_seed"] else {}
+    iters = ex["tracking_iters_per_level"] or []
+    max_iter = ComoConfig().tracking.term_criteria.max_iter
+    rep["bench"] = dict(seconds=secs, launches=launches, line=line,
+                        keys_ok=(set(line) == BENCH_KEYS and set(ex) == BENCH_EXTRA_KEYS
+                                 and set(seed) == BENCH_SEED_KEYS),
+                        finite=all_finite(line))
+    if not rep["bench"]["keys_ok"]:
+        raise SystemExit(f"the bench line's keys are not the JAX line's: {sorted(line)} "
+                         f"{sorted(ex)} {sorted(seed)}")
+    if not rep["bench"]["finite"]:
+        raise SystemExit(f"the bench line holds a non-finite value: {line}")
+    if not (line["value"] > 0 and ex["e2e_fps"] > 0 and ex["frame_program_throughput_fps"] > 0
+            and ex["mapping_gn_iter_ms"] > 0 and min(ex["stress"].values()) > 0):
+        raise SystemExit(f"the bench line holds a rate that is not positive: {line}")
+    if not ex["e2e_ate_cm"] / 100.0 < 0.5:
+        raise SystemExit(f"bench e2e ATE {ex['e2e_ate_cm']} cm: the tracker is lost")
+    if not (len(iters) == 3 and all(1 <= i <= max_iter for i in iters)):
+        raise SystemExit(f"tracking_iters_per_level {iters} is not within [1, {max_iter}]")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched by the bench: {launches}")
+
+    # eval_matrix: the plane phase's sequence through the matrix's cell
+    evm_out = out_dir / "eval_matrix.json"
+    secs, lines, launches = run_tool(eval_matrix.main, [
+        "--scenes", "plane", "--priors", "analytic", "--seeds", "0", "--frames", "25",
+        "--out", str(evm_out)], "eval_matrix")
+    row = json.loads(evm_out.read_text())[0]
+    cell_cfg = ComoConfig()
+    cell_cfg.img_size = list(cfg.img_size)
+    cell_cfg.mapping.prior, cell_cfg.mapping.model_path = "analytic", ""
+    same_cfg = cell_cfg.validate() == cfg
+    rep["eval_matrix"] = dict(seconds=secs, launches=launches, row=row,
+                              config_is_como_yml=same_cfg, ate_cm_plane_phase=(
+                                  100.0 * plane_ate if plane_ate is not None else None))
+    if not row["ate_cm"] / 100.0 < PLANE_ATE_GUARD_M:
+        raise SystemExit(f"eval_matrix plane ATE {row['ate_cm']} cm exceeds the guard")
+    if same_cfg and plane_ate is not None and row["ate_cm"] != 100.0 * plane_ate:
+        raise SystemExit(f"eval_matrix's plane cell ({row['ate_cm']} cm) is not the plane "
+                         f"phase's run ({100.0 * plane_ate} cm)")
+
+    # run_full: the plane sequence through the sweep script
+    secs, lines, launches = run_tool(run_full.main, ["--scene", "plane", "--frames", "25"],
+                                     "run_full")
+    rf = json.loads(lines[-1])
+    rep["run_full"] = dict(seconds=secs, launches=launches, result=rf)
+    if not rf["ate_m"] < PLANE_ATE_GUARD_M:
+        raise SystemExit(f"run_full plane ATE {rf['ate_m']} m exceeds the guard")
+
+    # bench_runtimes: ComoSeq and ComoPipeline on the bench world
+    rt_out = out_dir / "runtime_bench.json"
+    secs, lines, launches = run_tool(bench_runtimes.main, [
+        "--frames", "30", "--runs", "1", "--out", str(rt_out)], "bench_runtimes")
+    rt = json.loads(rt_out.read_text())
+    rep["bench_runtimes"] = dict(seconds=secs, launches=launches,
+                                 seq=rt["seq"]["best"], pipeline=rt["pipeline"]["best"],
+                                 pipeline_vs_seq=rt["pipeline_vs_seq"])
+    for kind in ("seq", "pipeline"):
+        r = rt[kind]["best"]
+        if not (math.isfinite(r["ate_cm"]) and r["fps"] > 0 and r["frames_tracked"] > 0):
+            raise SystemExit(f"bench_runtimes {kind}: {r}")
+
+    # profile_e2e: the phase table after 20 frames
+    secs, lines, launches = run_tool(profile_e2e.main, ["--frames", "30", "--warmup", "20"],
+                                     "profile_e2e")
+    pe = json.loads(lines[-1])
+    rep["profile_e2e"] = dict(seconds=secs, launches=launches, result=pe)
+    if not (pe["phases"] and all_finite(pe)):
+        raise SystemExit(f"profile_e2e holds no phase or a non-finite row: {pe}")
+
+    # profile_gn: five stages on each of the three windows
+    secs, lines, launches = run_tool(profile_gn.main, ["--iters", "1"], "profile_gn")
+    pg = json.loads(lines[-1])
+    rep["profile_gn"] = dict(seconds=secs, launches=launches, result=pg)
+    if len(pg["windows"]) != 3 or not all(
+            len(w["ms"]) == 5 and all(math.isfinite(v) and v > 0 for v in w["ms"].values())
+            for w in pg["windows"].values()):
+        raise SystemExit(f"profile_gn: not five finite positive stage times per window: {pg}")
+
+    # probe_pair_throughput: both dispatch kinds
+    secs, lines, launches = run_tool(probe_pair_throughput.main, [
+        "--frames", "25", "--n", "3", "--reps", "1"], "probe_pair_throughput")
+    pp = json.loads(lines[-1])
+    rep["probe_pair_throughput"] = dict(seconds=secs, launches=launches, result=pp)
+    if not (pp["best_single_fps"] > 0 and pp["best_pair_fps"] > 0):
+        raise SystemExit(f"probe_pair_throughput: a rate is not positive: {pp}")
+    return rep
 
 
 def main() -> int:
@@ -1203,6 +1369,10 @@ def main() -> int:
                                   and min(engine["launches"].values()) > 0):
         raise SystemExit(f"the mesh engine failed the plane guard: {engine}")
 
+    # ---- 13. entry_points: the measurement entry points at a small depth -----
+    entry = entry_points(cfg, plane_ate)
+    emit("entry_points", seconds={k: v["seconds"] for k, v in entry.items()}, **entry)
+
     emit("total", seconds=time.perf_counter() - t_script, profiles_lost=PROFILES_LOST)
     # the cross-covariance entry's own keys are those of its full-size shape;
     # "shapes" holds every timed shape class with its main-path launches
@@ -1211,7 +1381,8 @@ def main() -> int:
     by_path = {"train": train_launches, "plane": plane_launches, "main_path": launches,
                "cli": cli_launches,
                "rgb": rgb_launches, "pipeline": pipe_launches, "pipeline_plane": pp_launches,
-               **{f"runtimes_{k}": v for k, v in rt_launches.items()}, "viz": viz_launches}
+               **{f"runtimes_{k}": v for k, v in rt_launches.items()}, "viz": viz_launches,
+               **{f"entry_points_{k}": v["launches"] for k, v in entry.items()}}
     full = cc_shapes[0]
     table = [
         dict(name="cross_covariance", route="cuda", source="como_tpu_torch/csrc/gp_kernels.cu",

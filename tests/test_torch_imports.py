@@ -27,7 +27,10 @@ def test_no_jax_in_port():
                 "odom.backend.extra_factors", "parallel.sharded", "viz.geometry",
                 "viz.renderer", "viz.viewer", "viz.png", "train.loss", "train.data",
                 "train.optim", "train.train_depthcov", "train.select_checkpoint",
-                "tools.gn_step_time"):
+                "tools.gn_step_time", "bench", "tools.common", "tools.eval_matrix",
+                "tools.bench_runtimes", "tools.run_full", "tools.profile_e2e",
+                "tools.profile_gn", "tools.probe_pair_throughput", "tools.convert_replica_gt",
+                "tools.convert_scannet_gt"):
         assert f"como_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
