@@ -17,7 +17,8 @@ Phases, in this order, one JSON line each:
              then the cross-covariance's backward kernel at its training
              shapes (64 x 64 with one anchor set on both sides, 1,024 x 64)
              and at 49,152 x 64 against autograd of the plain version:
-             max abs error against the largest |grad|, bitwise repeat
+             max abs error against the largest |grad|, bitwise repeat, one
+             kernel per call (torch.profiler)
   unet       the learned prior (net/depthcov.py, models/depthcov.msgpack) on
              a fixed image against tests/data/unet_golden.npz, written by the
              JAX package (tests/torch_make_unet_golden.py): f32 and bf16
@@ -742,6 +743,8 @@ def main() -> int:
                              f"plain version at {Nn} x {M}")
         if not repeat:
             raise SystemExit(f"two backward launches at {Nn} x {M} differ")
+        if kernels != 1 and not prof["profile_events_lost"]:
+            raise SystemExit(f"a backward call at {Nn} x {M} ran {kernels} kernels, not one")
 
     # ---- 4. unet: the learned prior against the JAX package's golden ---------
     import numpy as np

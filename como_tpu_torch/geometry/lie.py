@@ -40,6 +40,13 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) Rodrigues formula."""
+    A, B, _ = _sinc_coeffs(torch.sum(omega * omega, -1))
+    W = skew(omega)
+    return _eye3(omega) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """(..., 6) [omega, v] -> (..., 4, 4)."""
     omega, v = xi[..., :3], xi[..., 3:]
@@ -106,6 +113,11 @@ def adjoint(T: torch.Tensor) -> torch.Tensor:
     tR = skew(T[..., :3, 3]) @ R
     Z = torch.zeros_like(R)
     return torch.cat([torch.cat([R, Z], -1), torch.cat([tR, R], -1)], -2)
+
+
+def invert_se3_jac(T: torch.Tensor):
+    """(T^-1, dT^-1/dT = -Adj(T))."""
+    return invert_se3(T), -adjoint(T)
 
 
 def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,17 @@ import torch
 from como_tpu_torch.gp.kernels_cuda import _EPS, cross_covariance, matern32  # noqa: F401
 
 
+def pack_cov(E: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 2) -> (..., 3) packed (e00, e11, e01)."""
+    return torch.stack([E[..., 0, 0], E[..., 1, 1], E[..., 0, 1]], -1)
+
+
+def unpack_cov(e: torch.Tensor) -> torch.Tensor:
+    """(..., 3) packed -> (..., 2, 2)."""
+    e00, e11, e01 = e[..., 0], e[..., 1], e[..., 2]
+    return torch.stack([torch.stack([e00, e01], -1), torch.stack([e01, e11], -1)], -2)
+
+
 def diag_covariance(e: torch.Tensor, scale) -> torch.Tensor:
     """diag K(X, X): Q = 0, C = 2 sqrt(det E) / safe_sqrt(det 2E)."""
     det = e[..., 0] * e[..., 1] - e[..., 2] * e[..., 2]

@@ -21,9 +21,12 @@ in plain PyTorch, for the CPU tests only.
 The gradient.  On CUDA, when grad mode is on and an input requires grad,
 `cross_covariance` goes through `CrossCovariance` (torch.autograd.Function):
 its forward is the same kernel launch, its backward the hand-written
-kernel `como_cross_covariance_bwd_f32` (same source), which recomputes the
-pair terms and sums the grads over anchors and over sites in a fixed
-order (two passes bitwise equal).  No TPU kernel corresponds: como_tpu
+kernel `como_cross_covariance_bwd_f32` (same source): one launch that
+recomputes the pair terms with IEEE arithmetic and sums the grads over
+anchors and over sites in a fixed order (two passes bitwise equal), the
+sum over blocks included (through distributed shared memory within a
+thread-block cluster, and a ticket counter across clusters, kept here per
+stream and zero between launches).  No TPU kernel corresponds: como_tpu
 differentiates the XLA twin.  `cross_covariance_bwd.launches` and
 `.launches_by_shape` count the backward's launches, apart from the
 forward's.  Without grad the direct launch stays, so inference launches
@@ -170,6 +173,21 @@ def cross_covariance_vjp_plain(grad, x_n, e_n, x_m, e_m, scale):
         return torch.autograd.grad(K, ins, grad)
 
 
+_BWD_COUNTERS = {}   # {(device index, stream): the int32 ticket counter, zero between launches}
+
+
+def _bwd_counter(device) -> torch.Tensor:
+    """The backward's ticket counter for launches on the current stream of
+    the current device (the caller has set it to the tensors' device):
+    zeroed once here (torch.zeros), and left zero by every launch (the
+    kernel resets it when the last ticket is drawn).  One per stream, since
+    launches on one stream never overlap."""
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    if key not in _BWD_COUNTERS:
+        _BWD_COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _BWD_COUNTERS[key]
+
+
 def _launch_bwd(grad, x_n, e_n, x_m, e_m, scale: float):
     from como_tpu_torch import cuda_lib
 
@@ -183,21 +201,21 @@ def _launch_bwd(grad, x_n, e_n, x_m, e_m, scale: float):
     if N == 0 or M == 0:        # nothing to launch, nothing counted
         return tuple(torch.zeros(t.shape, dtype=torch.float32, device=x_n.device)
                      for t in ts[1:])
-    # the kernels write every site's and every anchor's grads
+    # the kernel writes every site's and every anchor's grads
     outs = [torch.empty(t.shape, dtype=torch.float32, device=x_n.device) for t in ts[1:]]
     lib = cuda_lib.lib("gp_kernels")
     lib.como_cross_covariance_bwd_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.como_cross_covariance_bwd_scratch.restype = ctypes.c_longlong
-    scratch = torch.empty(lib.como_cross_covariance_bwd_scratch(N, M), dtype=torch.float32,
-                          device=x_n.device)
     fn = lib.como_cross_covariance_bwd_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] \
-        + [ctypes.c_void_p] * 6
+        + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     with torch.cuda.device(x_n.device):    # the launch goes to the current device
+        scratch = torch.empty(lib.como_cross_covariance_bwd_scratch(N, M),
+                              dtype=torch.float32, device=x_n.device)
         err = fn(*[cuda_lib.ptr(t) for t in ts], ctypes.c_float(scale), N, M,
                  *[cuda_lib.ptr(t) for t in outs], cuda_lib.ptr(scratch),
-                 cuda_lib.stream_ptr(x_n.device))
+                 cuda_lib.ptr(_bwd_counter(x_n.device)), cuda_lib.stream_ptr(x_n.device))
     cuda_lib.check(err, "como_cross_covariance_bwd_f32")
     cross_covariance_bwd.launches += 1
     by_shape = cross_covariance_bwd.launches_by_shape

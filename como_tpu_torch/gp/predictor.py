@@ -40,3 +40,16 @@ def predictive_stdev_inv(K_nm, Knm_Kmminv, K_nn_diag):
     var = var + torch.min(var) + 1e-8
     return 1.0 / torch.sqrt(var)
 
+
+
+def predictor_from_cov_img(cov_img: torch.Tensor, coords_m_norm: torch.Tensor,
+                           coords_n_norm: torch.Tensor, e_n: torch.Tensor | None,
+                           scale, jitter: float = 1e-6):
+    """From a packed (3, H, W) covariance image: (GPPredictor, (K_mm, K_nm,
+    K_nn_diag), e_m).  With e_n None the test covs are sampled from the
+    image at coords_n_norm."""
+    e_m = kernels.interpolate_cov_params(cov_img, coords_m_norm)
+    if e_n is None:
+        e_n = kernels.interpolate_cov_params(cov_img, coords_n_norm)
+    K_mm, K_nm, K_nn_diag = kernel_matrices(coords_m_norm, e_m, coords_n_norm, e_n, scale)
+    return build_predictor(K_mm, K_nm, jitter), (K_mm, K_nm, K_nn_diag), e_m

@@ -128,6 +128,13 @@ def greedy_entropy_loop(domain_norm, e_domain, domain_valid, curr_norm, curr_e,
                          valid=sel_valid, is_new=is_new), obs_info, var, min_dist_sq
 
 
+def pack_prefix(coords: torch.Tensor, mask: torch.Tensor, *extras):
+    """Stable-pack the masked rows to the front, in order: (packed_coords,
+    packed_mask, *packed_extras), all on the inputs' device."""
+    order = torch.argsort(torch.logical_not(mask).to(torch.uint8), stable=True)
+    return (coords[order], mask[order], *(e[order] for e in extras))
+
+
 def random_uniform_sample(generator, domain_valid: torch.Tensor, num_slots: int):
     """Uniform anchor sampling without replacement over the valid domain
     sites (sampling.mode "random_uniform"): Gumbel top-k.  Returns (S,)

@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 
+def swap_xy(coords: torch.Tensor) -> torch.Tensor:
+    """(row, col) <-> (x, y) on the last axis."""
+    return torch.stack([coords[..., 1], coords[..., 0]], -1)
+
+
 def normalize_coords(x_pixel: torch.Tensor, dims) -> torch.Tensor:
     A = 1.0 / torch.as_tensor(dims, dtype=x_pixel.dtype, device=x_pixel.device)
     return 2.0 * A * x_pixel + A - 1.0
@@ -27,6 +32,12 @@ def coord_grid_rc(img_size, dtype=torch.float32, device="cuda") -> torch.Tensor:
                             torch.arange(w, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([ys.reshape(-1), xs.reshape(-1)], -1)
+
+
+def coord_img_rc(img_size, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """(H, W, 2) image of (row, col) coords."""
+    h, w = img_size
+    return coord_grid_rc(img_size, dtype, device).reshape(h, w, 2)
 
 
 def fill_image(coords_rc: torch.Tensor, vals: torch.Tensor, img_size,

@@ -48,6 +48,29 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
             + tap(y1c, x0c) * w10 + tap(y1c, x1c) * w11)
 
 
+def img_interp(img: torch.Tensor, xy: torch.Tensor):
+    """Sample (C, H, W) at xy (N, 2) with zeros padding -> vals (C, N) and
+    valid (N,): 1 <= x < W-1 and 1 <= y < H-1 (the strict interior, where
+    image gradients are clean)."""
+    _, H, W = img.shape
+    x, y = xy[..., 0], xy[..., 1]
+    valid = (x >= 1) & (x < W - 1) & (y >= 1) & (y < H - 1)
+    return bilinear_sample(img, xy, padding="zeros"), valid
+
+
+def batched_bilinear_sample(imgs: torch.Tensor, xy: torch.Tensor,
+                            padding: str = "zeros") -> torch.Tensor:
+    """bilinear_sample over a leading batch: (B, C, H, W) at (B, N, 2) ->
+    (B, C, N)."""
+    return torch.stack([bilinear_sample(i, p, padding) for i, p in zip(imgs, xy)])
+
+
+def batched_img_interp(imgs: torch.Tensor, xy: torch.Tensor):
+    """img_interp over a leading batch: vals (B, C, N), valid (B, N)."""
+    vals, valid = zip(*(img_interp(i, p) for i, p in zip(imgs, xy)))
+    return torch.stack(vals), torch.stack(valid)
+
+
 def bilinear_sample_frames(imgs: torch.Tensor, j: torch.Tensor,
                            xy: torch.Tensor) -> torch.Tensor:
     """Sample imgs (F, C, H, W) at xy (P, N, 2) from frame j[p] -> (P, C, N).
@@ -100,11 +123,13 @@ def _resize_weights(in_size: int, out_size: int, dtype, device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, torch.zeros_like(weights))
 
 
-def resize_bilinear(img: torch.Tensor, out_size) -> torch.Tensor:
+def resize_bilinear(img: torch.Tensor, out_size, align_corners: bool = False) -> torch.Tensor:
     """Resize (..., H, W) to out_size=(H2, W2) exactly as
     jax.image.resize(method="linear"): a separable triangle-kernel
     scale-and-translate that antialiases when downsampling.  Axes whose
-    size does not change are left untouched."""
+    size does not change are left untouched.  `align_corners` is accepted
+    and not read, as in como_tpu: the sampling is always half-pixel
+    centred."""
     H, W = img.shape[-2:]
     H2, W2 = int(out_size[0]), int(out_size[1])
     out = img

@@ -46,6 +46,37 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return xs[torch.clamp(n - 1, min=0) // 2]
 
 
+def masked_mad_sigma(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """1.4826 * median(|r[mask]|), the robust sigma."""
+    return 1.4826 * masked_median(torch.abs(r), mask)
+
+
+def solve_chol(H: torch.Tensor, g: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """x with H x = g by Cholesky, with optional damping on the diagonal;
+    NaN where the factorization failed."""
+    if damping:
+        H = H + damping * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return chol_solve(cholesky(H), g[..., None])[..., 0]
+
+
+def lstsq_chol(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """argmin ||A x - b|| by the normal equations and Cholesky."""
+    At = A.transpose(-1, -2)
+    return chol_solve(cholesky(At @ A), At @ b)
+
+
+def det2x2(mats: torch.Tensor) -> torch.Tensor:
+    return mats[..., 0, 0] * mats[..., 1, 1] - mats[..., 0, 1] * mats[..., 1, 0]
+
+
+def inv2x2(mats: torch.Tensor):
+    """(inverse, determinant) of (..., 2, 2) matrices."""
+    dets = det2x2(mats)
+    inv = torch.stack([torch.stack([mats[..., 1, 1], -mats[..., 0, 1]], -1),
+                       torch.stack([-mats[..., 1, 0], mats[..., 0, 0]], -1)], -2)
+    return inv / dets[..., None, None], dets
+
+
 def median(x: torch.Tensor) -> torch.Tensor:
     """jnp.median: mean of the two middle values of x (flattened); NaN if
     any entry is NaN.  (torch.median would return the lower middle.)"""

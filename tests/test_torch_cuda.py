@@ -384,10 +384,17 @@ def _bwd_close(got, want):
         assert float((a - b).abs().max()) <= 1e-5 + 1e-4 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("N,M", [(64, 64), (1024, 64), (49152, 64), (37, 33), (1, 5)])
+@pytest.mark.parametrize("N,M", [(64, 64), (1024, 64), (49152, 64), (37, 33), (1, 5),
+                                 (3000, 96), (49153, 64), (777, 131), (5000, 200)])
 def test_cross_covariance_bwd_kernel(cuda, N, M):
     """The backward kernel against autograd of the plain version, twice
-    bitwise equal; its launches counted apart from the forward's."""
+    bitwise equal; its launches counted apart from the forward's.  Beside
+    the training and full sizes: N not a multiple of a block's sites (37,
+    3,000, 49,153, 777, 5,000) and M not a multiple of 32.  The cases with
+    more than one cluster take the ticket and the sum over clusters: 49,152
+    and 49,153 x 64 (R = 48, 128 and 130 blocks in clusters of 2 on the
+    H100), 3,000 x 96, 777 x 131 and 5,000 x 200; the last two (M > 128)
+    walk two panels of anchors.  The others are one cluster."""
     from como_tpu_torch.gp import kernels_cuda
 
     g = torch.Generator().manual_seed(N + M)
@@ -402,6 +409,38 @@ def test_cross_covariance_bwd_kernel(cuda, N, M):
     assert kernels_cuda.cross_covariance.launches == fwd
     _bwd_close(got, kernels_cuda.cross_covariance_vjp_plain(grad, *args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N,M", [(64, 64), (1024, 64), (49152, 64), (3000, 96)])
+def test_cross_covariance_bwd_is_one_launch(cuda, N, M):
+    """One call is one kernel on the card (torch.profiler counts the
+    device's kernels: the sum over blocks is in the same launch, and no
+    memset), and the ticket counters it uses are zero again after it.  A
+    profile that lost events (none at all, or a count that is not a
+    multiple of the calls, as seen on an H100 late in a long process) is
+    taken again, up to three times, as chip_smoke's device_ms does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from como_tpu_torch.gp import kernels_cuda
+
+    g = torch.Generator().manual_seed(3)
+    args = (*_sites(g, N, cuda), *_sites(g, M, cuda), 1.0)
+    grad = torch.randn((N, M), generator=g).to(cuda)
+    kernels_cuda.cross_covariance_bwd(grad, *args)       # builds, allocates the counters
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kernels_cuda.cross_covariance_bwd(grad, *args)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen.append([(e.key, e.count) for e in kern])
+        if sum(e.count for e in kern) % 3 == 0 and kern:
+            break
+    assert sum(e.count for e in kern) == 3, seen
+    assert all(int(c.abs().sum()) == 0 for c in kernels_cuda._BWD_COUNTERS.values())
 
 
 def test_cross_covariance_grad_through_the_kernel(cuda):

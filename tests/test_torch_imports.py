@@ -30,7 +30,7 @@ def test_no_jax_in_port():
                 "tools.gn_step_time", "bench", "tools.common", "tools.eval_matrix",
                 "tools.bench_runtimes", "tools.run_full", "tools.profile_e2e",
                 "tools.profile_gn", "tools.probe_pair_throughput", "tools.convert_replica_gt",
-                "tools.convert_scannet_gt"):
+                "tools.convert_scannet_gt", "tools.cross_cov_bwd_probe"):
         assert f"como_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -47,12 +47,13 @@ def test_import_rule():
     """The package imports torch, numpy, yaml, the standard library and
     itself; cv2 and pyrealsense2 only inside data/datasets.py (and cv2
     inside train/data.py), open3d only
-    inside viz/viewer.py (the probe under tools/ also borrows the timing
+    inside viz/viewer.py (the probes under tools/ also borrow the timing
     helpers of chip_smoke.py)."""
     allowed = {"torch", "numpy", "yaml", "como_tpu_torch"}
     only_in = {"data/datasets.py": {"cv2", "pyrealsense2"}, "train/data.py": {"cv2"},
                "viz/viewer.py": {"open3d"},
-               "tools/cross_cov_probe.py": {"chip_smoke"}}
+               "tools/cross_cov_probe.py": {"chip_smoke"},
+               "tools/cross_cov_bwd_probe.py": {"chip_smoke"}}
     pkg = Path(como_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py"))
     assert len(files) > 50
@@ -66,6 +67,55 @@ def test_import_rule():
         extra = roots - allowed - set(sys.stdlib_module_names)
         ok = only_in.get(f.relative_to(pkg).as_posix(), set())
         assert extra <= ok, f"{f.relative_to(pkg)} imports {sorted(extra - ok)}"
+
+
+# Public names of como_tpu without a namesake in the port, each with its
+# counterpart there (ROADMAP.md section 1 lists the same).
+COUNTERPARTS = {
+    "HIGH": "jnp.matmul's precision flag; the port's f32 products run in f32 "
+            "(TF32 off in como_tpu_torch/__init__.py)",
+    "cache_dir": "JAX's persistent compile cache; eager PyTorch compiles nothing",
+    "cross_covariance_pallas": "gp/kernels_cuda.py::cross_covariance (the CUDA kernel)",
+    "pallas_available": "the TPU's Pallas gate; the port launches its kernels at every "
+                        "CUDA size",
+    "gn_step": "jax.jit of _gn_step_impl; the port calls _gn_step_impl",
+    "gn_step_donating": "jax.jit of _gn_step_impl with donated buffers; likewise",
+    "init_unet": "net/unet.py::UNet, initialised from a seed",
+    "track_frame_fused": "runtime/seq.py's fused frame program",
+}
+
+
+def _public_names(pkg: Path) -> set:
+    names = set()
+    for f in pkg.rglob("*.py"):
+        for node in ast.parse(f.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_name_of_como_tpu_has_a_port():
+    """A module-level def, class or constant of como_tpu either has a
+    namesake in the port or a counterpart listed in COUNTERPARTS; and the
+    helpers ported last are importable where their JAX modules mirror."""
+    missing = _public_names(ROOT / "como_tpu") - _public_names(ROOT / "como_tpu_torch")
+    assert missing == set(COUNTERPARTS), sorted(missing ^ set(COUNTERPARTS))
+    import importlib
+
+    for mod, names in {"ops.linalg": "masked_mad_sigma solve_chol lstsq_chol det2x2 inv2x2",
+                       "ops.coords": "swap_xy coord_img_rc",
+                       "ops.interp": "img_interp batched_img_interp batched_bilinear_sample",
+                       "odom.backend.robust": "squared tukey TUKEY_T",
+                       "geometry.lie": "so3_exp invert_se3_jac",
+                       "gp.kernels": "pack_cov unpack_cov", "gp.sampler": "pack_prefix",
+                       "gp.predictor": "predictor_from_cov_img"}.items():
+        m = importlib.import_module(f"como_tpu_torch.{mod}")
+        assert all(hasattr(m, n) for n in names.split()), mod
+    from como_tpu_torch.ops.coords import coord_img_rc
+
+    assert inspect.signature(coord_img_rc).parameters["device"].default == "cuda"
 
 
 def test_entry_points_default_to_cuda():
