@@ -276,29 +276,33 @@ def unet_golden_errors(cov, want, f32: bool) -> dict:
     return dict(max_abs_err=float(d.max()), median_rel_err=med_rel, ok=ok)
 
 
-def counters() -> dict:
-    """{kernel: its wrapper, which counts its launches}."""
-    from como_tpu_torch.gp import kernels_cuda, sampler_cuda
-
-    return {"cross_covariance": kernels_cuda.cross_covariance,
-            "cross_covariance_bwd": kernels_cuda.cross_covariance_bwd,
-            "sampler_downdate": sampler_cuda.downdate_step}
+# {kernel: the recorder's counter of its launches, keyed by shape}
+LAUNCH_COUNTERS = {"cross_covariance": "kernels.cross_covariance",
+                   "cross_covariance_bwd": "kernels.cross_covariance_bwd",
+                   "sampler_downdate": "kernels.downdate"}
 
 
 def reset_launches():
-    for fn in counters().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_shape"):
-            fn.launches_by_shape.clear()
+    from como_tpu_torch.utils.profiling import RECORDER
+
+    RECORDER.reset(*LAUNCH_COUNTERS.values())
+
+
+def launches_per_shape(kernel: str) -> dict:
+    """{"NxM": launches} of a kernel since reset_launches()."""
+    from como_tpu_torch.utils.profiling import RECORDER
+
+    return {f"{n}x{k}": c for (n, k), c in
+            sorted(RECORDER.by_key(LAUNCH_COUNTERS[kernel]).items(), reverse=True)}
 
 
 def read_launches(names=INFERENCE_KERNELS):
     """({kernel: launches} of `names`, {"NxM": cross-covariance launches})
     since reset_launches()."""
-    fns = counters()
-    by_shape = {f"{n}x{k}": c for (n, k), c in
-                sorted(fns["cross_covariance"].launches_by_shape.items(), reverse=True)}
-    return {k: fns[k].launches for k in names}, by_shape
+    from como_tpu_torch.utils.profiling import RECORDER
+
+    return ({k: RECORDER.counter(LAUNCH_COUNTERS[k]) for k in names},
+            launches_per_shape("cross_covariance"))
 
 
 def ate_m(eng, ds) -> float:
@@ -802,8 +806,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_seconds = time.perf_counter() - t0
     train_launches, _ = read_launches(("cross_covariance", "cross_covariance_bwd"))
-    bwd_by_shape = {f"{n}x{k}": c for (n, k), c in
-                    sorted(kernels_cuda.cross_covariance_bwd.launches_by_shape.items())}
+    bwd_by_shape = dict(sorted(launches_per_shape("cross_covariance_bwd").items()))
     # per step, at each size, on a model and optimizer of the trainer's own
     # making (one image, its sites drawn on the card)
     model = train_depthcov.make_model(dev)
@@ -835,7 +838,7 @@ def main() -> int:
          grad_norm_finite_every_step=bool(np.isfinite(norms).all()),
          grad_norm_max=float(norms.max()), validations=res["validations"],
          best_val_score=res["best_score"], selected=res["selected"],
-         launches=train_launches, cross_covariance_bwd_launches_by_shape=bwd_by_shape,
+         launches=train_launches, cross_covariance_bwd_launches_per_shape=bwd_by_shape,
          per_step=per_size, checkpoint=str(train_out.relative_to(HERE)),
          checkpoint_parameters=sum(v.numel() for v in sd.values()),
          prior_cov_shape=list(cov_t.shape), prior_cov_finite=bool(torch.isfinite(cov_t).all()))
@@ -917,7 +920,7 @@ def main() -> int:
          frame_ms_median=statistics.median(steady),
          frame_ms_p90=sorted(steady)[int(0.9 * (len(steady) - 1))],
          kf_insert_ms_median=statistics.median(kf_ms) if kf_ms else None,
-         launches=launches, cross_covariance_launches_by_shape=by_shape,
+         launches=launches, cross_covariance_launches_per_shape=by_shape,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          poses_finite=finite)
     (OUT / "chip_smoke_latency_ms.json").write_text(json.dumps(
@@ -990,7 +993,7 @@ def main() -> int:
          kf_insert_ms_median=statistics.median(cli_kf_ms) if cli_kf_ms else None,
          prior=mc.prior.mode, unet_compute_dtype=str(mc.prior.unet.compute_dtype),
          unet_calls=len(unet_calls), engine_device=str(eng_c.device),
-         launches=cli_launches, cross_covariance_launches_by_shape=cli_by_shape,
+         launches=cli_launches, cross_covariance_launches_per_shape=cli_by_shape,
          poses_finite=cli_finite)
     if eng_c.device.type != "cuda" or unet_calls.count("unet") != len(unet_calls):
         raise SystemExit("the CLI did not run the UNet prior on the card")
@@ -1082,7 +1085,7 @@ def main() -> int:
          stage_cpu_share={k: v[0] / v[1] for k, v in eng_pl.stage_seconds.items()},
          stage_devices=[str(eng_pl.track_dev), str(eng_pl.map_dev)],
          threads_ended=threads_ended, tensors_on_card=on_card, launches=pipe_launches,
-         cross_covariance_launches_by_shape=pipe_by_shape, poses_finite=pipe_finite)
+         cross_covariance_launches_per_shape=pipe_by_shape, poses_finite=pipe_finite)
     if not isinstance(eng_pl, ComoPipeline) or type(eng_pl.rgb_q).__name__ != "NativeQueue":
         raise SystemExit("--runtime pipeline did not run ComoPipeline over the native ring")
     if not (threads_ended and on_card and len(eng_pl.stage_seconds) == 2):
@@ -1392,7 +1395,7 @@ def main() -> int:
              replaces="como_tpu/gp/kernels_pallas.py:95", launches=launches["cross_covariance"],
              max_abs_err=full["max_abs_err"], ms=full["ms"], plain_ms=full["plain_ms"],
              bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
-             shapes=cc_shapes, launches_by_shape=by_shape,
+             shapes=cc_shapes, launches_per_shape=by_shape,
              launches_by_path={k: v["cross_covariance"] for k, v in by_path.items()}),
         dict(name="cross_covariance_bwd", route="cuda",
              source="como_tpu_torch/csrc/gp_kernels.cu",
@@ -1403,7 +1406,7 @@ def main() -> int:
              max_abs_err=bwd_shapes[1]["max_abs_err"], ms=bwd_shapes[1]["ms"],
              plain_ms=bwd_shapes[1]["plain_ms"], bound_ms=bwd_shapes[1]["bound_ms"],
              bound_by=bwd_shapes[1]["bound_by"], library_ms=None, shapes=bwd_shapes,
-             launches_by_shape=bwd_by_shape, launches_by_path={"train": train_launches[
+             launches_per_shape=bwd_by_shape, launches_by_path={"train": train_launches[
                  "cross_covariance_bwd"]}),
         dict(name="sampler_downdate", route="cuda",
              source="como_tpu_torch/csrc/sampler_kernels.cu",

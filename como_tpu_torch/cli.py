@@ -9,7 +9,9 @@ The flags are those of the JAX package's CLI, plus --device (default
 it does not carry on on the CPU.  --runtime pipeline runs the two stage
 threads of runtime/pipeline.py.  --viz attaches the Open3D viewer, or where
 open3d is not installed the snapshot viewer, which writes PNGs of the map
-to results/viz/ under the working directory (viz/viewer.py).
+to results/viz/ under the working directory (viz/viewer.py).  --log writes
+the engine's events and, at the end of the run, the spans it recorded and
+their summary (utils/profiling.py::write_log) to one jsonl file.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def main(argv=None):
     p.add_argument("--save_state", type=str, default=None,
                    help="write a mapping-state checkpoint at the end")
     p.add_argument("--log", type=str, default=None,
-                   help="jsonl event-log path")
+                   help="jsonl path of the events, spans and span summary")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the engine: cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -79,6 +81,7 @@ def main(argv=None):
         attach_viewer(eng)
 
     n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
+    mark = profiling.RECORDER.mark()
     t_start = time.perf_counter()
     t_pace0 = monotonic_now()
     t0_ts = None
@@ -109,6 +112,8 @@ def main(argv=None):
     out = os.path.join(args.save_traj, name + ".txt")
     eng.save_trajectory(out)
     if hasattr(eng, "log"):
+        if args.log:
+            profiling.write_log(eng.log, mark)
         eng.log.close()
     print(f"{n} frames in {wall:.1f}s ({n / wall:.1f} FPS); trajectory -> {out}")
     return eng

@@ -13,8 +13,8 @@ special-function operations per output).
 `cross_covariance_plain` (the port of the XLA twin
 como_tpu/gp/kernels.py::cross_covariance / _pair_terms); CUDA tensors
 launch the kernel, or raise.  There is no fallback between the two.
-`cross_covariance.launches` counts kernel launches, and
-`cross_covariance.launches_by_shape` counts them by (N, M).
+Each launch counts in the recorder's counter "kernels.cross_covariance",
+keyed by (N, M) (utils/profiling.py).
 `cross_covariance_reassociated` repeats the kernel's reordered arithmetic
 in plain PyTorch, for the CPU tests only.
 
@@ -27,11 +27,11 @@ anchors and over sites in a fixed order (two passes bitwise equal), the
 sum over blocks included (through distributed shared memory within a
 thread-block cluster, and a ticket counter across clusters, kept here per
 stream and zero between launches).  No TPU kernel corresponds: como_tpu
-differentiates the XLA twin.  `cross_covariance_bwd.launches` and
-`.launches_by_shape` count the backward's launches, apart from the
-forward's.  Without grad the direct launch stays, so inference launches
-exactly as before.  On the CPU, autograd of `cross_covariance_plain` is
-the gradient and the backward's plain twin (`cross_covariance_vjp_plain`).
+differentiates the XLA twin.  The backward's launches count in
+"kernels.cross_covariance_bwd", apart from the forward's.  Without grad
+the direct launch stays, so inference launches exactly as before.  On the
+CPU, autograd of `cross_covariance_plain` is the gradient and the
+backward's plain twin (`cross_covariance_vjp_plain`).
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ import ctypes
 import math
 
 import torch
+
+from como_tpu_torch.utils.profiling import RECORDER
 
 SQRT3 = math.sqrt(3.0)
 _EPS = 1e-8
@@ -125,9 +127,7 @@ def _launch(x_n, e_n, x_m, e_m, scale: float) -> torch.Tensor:
         err = fn(*[cuda_lib.ptr(t) for t in ts], ctypes.c_float(scale),
                  cuda_lib.ptr(out), N, M, cuda_lib.stream_ptr(x_n.device))
     cuda_lib.check(err, "como_cross_covariance_f32")
-    cross_covariance.launches += 1
-    by_shape = cross_covariance.launches_by_shape
-    by_shape[(N, M)] = by_shape.get((N, M), 0) + 1
+    RECORDER.count("kernels.cross_covariance", key=(N, M))
     return out
 
 
@@ -144,10 +144,6 @@ def cross_covariance(x_n, e_n, x_m, e_m, scale) -> torch.Tensor:
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_n, e_n, x_m, e_m)):
         return CrossCovariance.apply(x_n, e_n, x_m, e_m, float(scale))
     return _launch(x_n, e_n, x_m, e_m, float(scale))
-
-
-cross_covariance.launches = 0
-cross_covariance.launches_by_shape = {}    # {(N, M): launches}
 
 
 class CrossCovariance(torch.autograd.Function):
@@ -217,9 +213,7 @@ def _launch_bwd(grad, x_n, e_n, x_m, e_m, scale: float):
                  *[cuda_lib.ptr(t) for t in outs], cuda_lib.ptr(scratch),
                  cuda_lib.ptr(_bwd_counter(x_n.device)), cuda_lib.stream_ptr(x_n.device))
     cuda_lib.check(err, "como_cross_covariance_bwd_f32")
-    cross_covariance_bwd.launches += 1
-    by_shape = cross_covariance_bwd.launches_by_shape
-    by_shape[(N, M)] = by_shape.get((N, M), 0) + 1
+    RECORDER.count("kernels.cross_covariance_bwd", key=(N, M))
     return tuple(outs)
 
 
@@ -232,7 +226,3 @@ def cross_covariance_bwd(grad, x_n, e_n, x_m, e_m, scale):
     if x_n.device.type != "cuda":
         raise ValueError(f"cross_covariance_bwd: unsupported device {x_n.device}")
     return _launch_bwd(grad, x_n, e_n, x_m, e_m, float(scale))
-
-
-cross_covariance_bwd.launches = 0
-cross_covariance_bwd.launches_by_shape = {}    # {(N, M): launches}

@@ -25,6 +25,7 @@ import torch
 
 from como_tpu_torch.gp import kernels
 from como_tpu_torch.gp.sampler_cuda import downdate_step
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 class SamplerResult(NamedTuple):
@@ -41,10 +42,11 @@ def greedy_entropy_sample(domain_norm, e_domain, domain_valid, curr_norm,
                           max_stdev_thresh: float = -1e8,
                           dist_thresh: float = 0.0, num_slots: int = 64,
                           terminate_early: bool = False) -> SamplerResult:
-    return greedy_entropy_loop(
-        domain_norm, e_domain, domain_valid, curr_norm, curr_e, curr_valid,
-        curr_var, signal_var, fixed_var, max_stdev_thresh, dist_thresh,
-        num_slots, terminate_early)[0]
+    with RECORDER.span("gp.sampler", sites=domain_norm.shape[0], slots=num_slots):
+        return greedy_entropy_loop(
+            domain_norm, e_domain, domain_valid, curr_norm, curr_e, curr_valid,
+            curr_var, signal_var, fixed_var, max_stdev_thresh, dist_thresh,
+            num_slots, terminate_early)[0]
 
 
 def greedy_entropy_loop(domain_norm, e_domain, domain_valid, curr_norm, curr_e,

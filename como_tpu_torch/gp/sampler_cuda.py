@@ -12,8 +12,9 @@ per-iteration scalars travel as one device tensor
 sc = [x_i0, x_i1, e_i00, e_i11, e_i01, 1/l_ii, select, scale].
 `downdate_step` dispatches on device: CPU tensors go to
 `downdate_step_plain` (the XLA branch, como_tpu/gp/sampler.py:162-171);
-CUDA tensors launch the kernel or raise.  `downdate_step.launches` counts
-kernel launches.
+CUDA tensors launch the kernel or raise.  Each launch counts in the
+recorder's counter "kernels.downdate", keyed by (S, D)
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import ctypes
 import torch
 
 from como_tpu_torch.gp.kernels_cuda import cross_covariance_plain
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 def downdate_step_plain(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni,
@@ -61,7 +63,7 @@ def _launch(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni, row: int) -> None:
                                              sc, l_ni)],
                  S, D, row, cuda_lib.stream_ptr(obs_info.device))
     cuda_lib.check(err, "como_downdate_step_f32")
-    downdate_step.launches += 1
+    RECORDER.count("kernels.downdate", key=(S, D))
 
 
 def downdate_step(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni, row: int) -> None:
@@ -72,6 +74,3 @@ def downdate_step(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni, row: int) -> N
     if obs_info.device.type != "cuda":
         raise ValueError(f"downdate_step: unsupported device {obs_info.device}")
     return _launch(xnT, enT, obs_info, var, min_dist_sq, sc, l_ni, row)
-
-
-downdate_step.launches = 0

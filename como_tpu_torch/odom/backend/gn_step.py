@@ -45,6 +45,7 @@ from como_tpu_torch.odom.window import WindowDims, WindowState
 from como_tpu_torch.ops import linalg
 from como_tpu_torch.ops.interp import bilinear_sample_frames
 from como_tpu_torch.ops.reduce import fast_mad_sigma_shards, histogram_median_rows
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 class GNStats(NamedTuple):
@@ -593,9 +594,11 @@ def _gn_step_impl(state: WindowState, pairs_ref, pairs_tgt, pairs_valid,
                   K_intr, dims: WindowDims, sigmas, damping=1e-6):
     """One GN iteration -> (new state, GNStats).  The input state is not
     modified; unchanged fields are shared with the output."""
-    state, sc, dn, photo = _linearize(state, pairs_ref, pairs_tgt, pairs_valid,
-                                      K_intr, dims, sigmas)
-    return _finish(state, sc, dn, photo, K_intr, dims, sigmas, damping)
+    with RECORDER.span("gn.step"):
+        state, sc, dn, photo = _linearize(state, pairs_ref, pairs_tgt, pairs_valid,
+                                          K_intr, dims, sigmas)
+        RECORDER.count("gn.steps")
+        return _finish(state, sc, dn, photo, K_intr, dims, sigmas, damping)
 
 
 def _finish(state: WindowState, sc, dn, photo, K_intr, dims: WindowDims,

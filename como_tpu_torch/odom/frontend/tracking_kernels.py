@@ -24,6 +24,7 @@ from como_tpu_torch.odom.backend.robust import huber as huber_weight
 from como_tpu_torch.ops import linalg
 from como_tpu_torch.ops.interp import bilinear_sample
 from como_tpu_torch.ops.reduce import fast_mad_sigma
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 class TrackLevel(NamedTuple):
@@ -113,10 +114,14 @@ def _level_solve(Tji, aff, lvl: TrackLevel, img_j, term: TermStatic):
 def track_pyramid(levels: Sequence[TrackLevel], img_pyr: Sequence[torch.Tensor],
                   Tji_init, aff_init, term: TermStatic):
     """Coarse-to-fine IC tracking; levels/img_pyr coarsest first.
-    Returns (Tji (4, 4), aff (2,), iters per level)."""
+    Returns (Tji (4, 4), aff (2,), iters per level).  Each level runs in a
+    span "tracking.ic_level" whose payload holds its index and the
+    iterations launched."""
     Tji, aff = Tji_init, aff_init
     iters = []
-    for lvl, img in zip(levels, img_pyr):
-        Tji, aff, it = _level_solve(Tji, aff, lvl, img[0], term)
+    for i, (lvl, img) in enumerate(zip(levels, img_pyr)):
+        with RECORDER.span("tracking.ic_level", level=i, launched=term.max_iter):
+            Tji, aff, it = _level_solve(Tji, aff, lvl, img[0], term)
+        RECORDER.count("tracking.ic_iters_launched", term.max_iter)
         iters.append(it)
     return Tji, aff, torch.stack(iters)

@@ -29,6 +29,7 @@ from como_tpu_torch.ops import linalg
 from como_tpu_torch.ops.coords import coord_grid_rc, normalize_coords
 from como_tpu_torch.parallel import sharded
 from como_tpu_torch.utils.log import NULL_LOG
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 def prep_keyframe(rgb, cov_img, coords_m_xy, K, scale, nms_window: int, C: int = 1):
@@ -279,47 +280,49 @@ class Mapping:
 
     # -- two-frame bootstrap ------------------------------------------------
     def attempt_two_frame_init(self, timestamp, rgb) -> bool:
-        cfg = self.cfg
-        if self._sfm_ref is None:
-            cov_img = self.prior.cov_params(rgb)
-            coords_m_rc = sample_initial_anchors(
-                cov_img, self.scale, self.dims.M, cfg.sampling.border,
-                cfg.sampling.dist_thresh, cfg.sampling.max_stdev_thresh,
-                cfg.sampling.fixed_var, mode=cfg.sampling.mode,
-                generator=torch.Generator().manual_seed(0))
-            ref = sfm_mod.setup_reference(rgb, cov_img, coords_m_rc, self.K,
-                                          self.scale, cfg.init.start_level,
-                                          cfg.init.end_level)
-            self._sfm_ref = dict(ref=ref, rgb=rgb, cov_img=cov_img,
-                                 coords_m_rc=coords_m_rc, ts=timestamp,
-                                 Tji=self._eye4(), logzm=self._zeros(self.dims.M))
-            return False
+        with RECORDER.span("mapping.two_frame_init"):
+            cfg = self.cfg
+            if self._sfm_ref is None:
+                cov_img = self.prior.cov_params(rgb)
+                coords_m_rc = sample_initial_anchors(
+                    cov_img, self.scale, self.dims.M, cfg.sampling.border,
+                    cfg.sampling.dist_thresh, cfg.sampling.max_stdev_thresh,
+                    cfg.sampling.fixed_var, mode=cfg.sampling.mode,
+                    generator=torch.Generator().manual_seed(0))
+                ref = sfm_mod.setup_reference(rgb, cov_img, coords_m_rc, self.K,
+                                              self.scale, cfg.init.start_level,
+                                              cfg.init.end_level)
+                self._sfm_ref = dict(ref=ref, rgb=rgb, cov_img=cov_img,
+                                     coords_m_rc=coords_m_rc, ts=timestamp,
+                                     Tji=self._eye4(), logzm=self._zeros(self.dims.M))
+                return False
 
-        pyr3 = _sfm_pyr3(rgb, cfg.init.start_level, cfg.init.end_level)
-        Tji, logzm, mean_logz, count, med = sfm_mod.sfm_align(
-            self._sfm_ref["ref"], pyr3, self._sfm_ref["Tji"],
-            self._sfm_ref["logzm"], self.sfm_term)
-        self._sfm_ref["Tji"], self._sfm_ref["logzm"] = Tji, logzm
+            pyr3 = _sfm_pyr3(rgb, cfg.init.start_level, cfg.init.end_level)
+            Tji, logzm, mean_logz, count, med = sfm_mod.sfm_align(
+                self._sfm_ref["ref"], pyr3, self._sfm_ref["Tji"],
+                self._sfm_ref["logzm"], self.sfm_term)
+            self._sfm_ref["Tji"], self._sfm_ref["logzm"] = Tji, logzm
 
-        n_pix = self.img_size[0] * self.img_size[1]
-        host = torch.stack([count.to(self.dtype), torch.linalg.norm(Tji[:3, 3]),
-                            med]).cpu().numpy()
-        frac = float(host[0]) / n_pix
-        kf_dist, med_f = float(host[1]), float(host[2])
-        if frac < cfg.init.kf_num_pixels_frac:
-            self._sfm_ref = None     # lost overlap: re-seed the reference
-            return False
-        if kf_dist <= cfg.init.kf_depth_motion_ratio * med_f:
-            return False
+            n_pix = self.img_size[0] * self.img_size[1]
+            with RECORDER.span("sync.two_frame_init"):
+                host = torch.stack([count.to(self.dtype), torch.linalg.norm(Tji[:3, 3]),
+                                    med]).cpu().numpy()
+            frac = float(host[0]) / n_pix
+            kf_dist, med_f = float(host[1]), float(host[2])
+            if frac < cfg.init.kf_num_pixels_frac:
+                self._sfm_ref = None     # lost overlap: re-seed the reference
+                return False
+            if kf_dist <= cfg.init.kf_depth_motion_ratio * med_f:
+                return False
 
-        r = self._sfm_ref
-        self._init_keyframe(r["rgb"], r["cov_img"], r["coords_m_rc"], logzm, r["ts"])
-        self.state.scale_anchor.copy_(mean_logz)
-        pose2 = transforms.get_T_w_curr(self._eye4()[None], Tji[None])[0]
-        self.add_keyframe(rgb, pose2, self._zeros(2), timestamp)
-        self._sfm_ref = None
-        self.is_init = True
-        return True
+            r = self._sfm_ref
+            self._init_keyframe(r["rgb"], r["cov_img"], r["coords_m_rc"], logzm, r["ts"])
+            self.state.scale_anchor.copy_(mean_logz)
+            pose2 = transforms.get_T_w_curr(self._eye4()[None], Tji[None])[0]
+            self.add_keyframe(rgb, pose2, self._zeros(2), timestamp)
+            self._sfm_ref = None
+            self.is_init = True
+            return True
 
     # -- keyframe insertion ---------------------------------------------------
     def _init_keyframe(self, rgb, cov_img, coords_m_rc, logzm, timestamp):
@@ -346,16 +349,19 @@ class Mapping:
         (small) arrays the host bookkeeping reads to the host."""
         st = self.state
         last = self.num_kf - 1
-        cov_img = self.prior.cov_params(rgb)
-        res, prep, Pw_new = _corr_and_prep(
-            st.kf_pose[last], pose_init, st.pm[last], st.logzm[last],
-            st.Knm_full[last], rgb, cov_img, self.K, self.scale, self.dims.M,
-            self.corr_cfg, self.dims.NW, self.img_size,
-            torch.Generator().manual_seed(len(self.kf_ts) + len(self.ow_ts)), self.C)
+        with RECORDER.span("mapping.prior"):
+            cov_img = self.prior.cov_params(rgb)
+        with RECORDER.span("mapping.corr_and_prep"):
+            res, prep, Pw_new = _corr_and_prep(
+                st.kf_pose[last], pose_init, st.pm[last], st.logzm[last],
+                st.Knm_full[last], rgb, cov_img, self.K, self.scale, self.dims.M,
+                self.corr_cfg, self.dims.NW, self.img_size,
+                torch.Generator().manual_seed(len(self.kf_ts) + len(self.ow_ts)), self.C)
         host = torch.stack([res.tracked.to(torch.int64), res.src_anchor])
+        with RECORDER.span("sync.insert_host"):
+            host = host.to("cpu", non_blocking=False)
         return dict(rgb=rgb, pose_init=pose_init, aff_init=aff_init, ts=timestamp,
-                    cov_img=cov_img, res=res, prep=prep, Pw_new=Pw_new,
-                    host=host.to("cpu", non_blocking=False))
+                    cov_img=cov_img, res=res, prep=prep, Pw_new=Pw_new, host=host)
 
     def add_keyframe_finalize(self, pend):
         """Phase 2: landmark-slot bookkeeping (host) + window writes."""
@@ -412,28 +418,33 @@ class Mapping:
         self._prev_err = float("inf")
 
     def add_keyframe(self, rgb, pose_init, aff_init, timestamp):
-        self.add_keyframe_finalize(
-            self.add_keyframe_dispatch(rgb, pose_init, aff_init, timestamp))
+        with RECORDER.span("mapping.add_keyframe"):
+            pend = self.add_keyframe_dispatch(rgb, pose_init, aff_init, timestamp)
+            with RECORDER.span("mapping.finalize"):
+                self.add_keyframe_finalize(pend)
+            RECORDER.count("mapping.keyframes")
 
     # -- one-way frames -------------------------------------------------------
     def add_one_way_frame(self, rgb, pose_init, aff_init, timestamp):
-        O = self.dims.O
-        iag = _prep_ow_img(rgb, self.C)
-        st = self.state
-        if self.num_ow >= O:
-            self.ow_ts = self.ow_ts[1:]
-            self.num_ow -= 1
-            for f in _OW_FIELDS:
-                _roll_left(getattr(st, f))
-        slot = self.num_ow
-        self.ow_ts.append(timestamp)
-        self.num_ow += 1
-        st.ow_pose[slot] = pose_init
-        st.ow_aff[slot] = aff_init
-        st.ow_img[slot] = iag
-        st.ow_valid[slot] = True
-        self._rebuild_pairs()
-        self.converged = False
+        with RECORDER.span("mapping.add_one_way_frame"):
+            O = self.dims.O
+            iag = _prep_ow_img(rgb, self.C)
+            st = self.state
+            if self.num_ow >= O:
+                self.ow_ts = self.ow_ts[1:]
+                self.num_ow -= 1
+                for f in _OW_FIELDS:
+                    _roll_left(getattr(st, f))
+            slot = self.num_ow
+            self.ow_ts.append(timestamp)
+            self.num_ow += 1
+            st.ow_pose[slot] = pose_init
+            st.ow_aff[slot] = aff_init
+            st.ow_img[slot] = iag
+            st.ow_valid[slot] = True
+            self._rebuild_pairs()
+            self.converged = False
+            RECORDER.count("mapping.one_way_frames")
 
     def prune_one_way(self):
         """Drop one-way frames older than the oldest keyframe."""
@@ -463,27 +474,29 @@ class Mapping:
         return len(self.kf_ts) - 1
 
     def handle_tracking_data(self, data):
-        kind, rgb, pose_curr_kf, aff_curr_kf, kf_ts, ts = data
-        k = self.find_kf_from_timestamp(float(kf_ts))
-        pose_w, aff_w = _compose_world(self.state.kf_pose[k], self.state.kf_aff[k],
-                                       pose_curr_kf, aff_curr_kf)
-        if kind == "keyframe":
-            self.add_keyframe(rgb, pose_w, aff_w, ts)
-            return True
-        self.add_one_way_frame(rgb, pose_w, aff_w, ts)
-        return False
+        with RECORDER.span("mapping.handle_tracking_data"):
+            kind, rgb, pose_curr_kf, aff_curr_kf, kf_ts, ts = data
+            k = self.find_kf_from_timestamp(float(kf_ts))
+            pose_w, aff_w = _compose_world(self.state.kf_pose[k], self.state.kf_aff[k],
+                                           pose_curr_kf, aff_curr_kf)
+            if kind == "keyframe":
+                self.add_keyframe(rgb, pose_w, aff_w, ts)
+                return True
+            self.add_one_way_frame(rgb, pose_w, aff_w, ts)
+            return False
 
     # -- GN iteration ---------------------------------------------------------
     def _rebuild_pairs(self):
         kwargs = {}
         if self._radius_mode and self.num_kf > 0:
             pc = self.cfg.photo_construction
-            kwargs = dict(
-                poses=self.state.kf_pose[: self.num_kf].cpu().numpy(),
-                median_depths=self.state.median_depth[: self.num_kf].cpu().numpy(),
-                ow_poses=self.state.ow_pose[: self.num_ow].cpu().numpy()
-                if self.num_ow else None,
-                radius_thresh=pc.radius_thresh, degrees_thresh=pc.degrees_thresh)
+            with RECORDER.span("sync.rebuild_pairs"):
+                kwargs = dict(
+                    poses=self.state.kf_pose[: self.num_kf].cpu().numpy(),
+                    median_depths=self.state.median_depth[: self.num_kf].cpu().numpy(),
+                    ow_poses=self.state.ow_pose[: self.num_ow].cpu().numpy()
+                    if self.num_ow else None,
+                    radius_thresh=pc.radius_thresh, degrees_thresh=pc.degrees_thresh)
         pb = pairs_mod.build_pairs(self.num_kf, self.kf_ts, self.ow_ts,
                                    self.dims.K, self.dims.P, **kwargs)
         self._pairs = tuple(torch.as_tensor(a, device=self.device) for a in
@@ -504,7 +517,8 @@ class Mapping:
             cand = [s for it, s in self._stats_hist if it <= self.iter_count - 4]
             if not cand:
                 return True
-            vals = torch.stack(list(cand[-1])).cpu().numpy()
+            with RECORDER.span("sync.should_iterate"):
+                vals = torch.stack(list(cand[-1])).cpu().numpy()
             err, delta, grad = float(vals[0]), float(vals[2]), float(vals[3])
             rel = abs(self._prev_err - err) / max(self._prev_err, 1e-20)
             self._prev_err = err
@@ -545,13 +559,14 @@ class Mapping:
     def get_kf_ref_data(self, num_ref: int = 1):
         """(timestamps, rgb, pose, aff, depth) of the trailing num_ref KFs,
         cloned out of the window."""
-        st = self.state
-        lo = max(0, self.num_kf - num_ref)
-        idx = slice(lo, self.num_kf)
-        logz = torch.einsum("rnm,rm->rn", st.Knm_full[idx], st.logzm[idx])
-        depth = torch.exp(logz).reshape((self.num_kf - lo,) + self.img_size)[:, None]
-        return (self.kf_ts[lo:self.num_kf], st.kf_rgb[idx].clone(),
-                st.kf_pose[idx].clone(), st.kf_aff[idx].clone(), depth)
+        with RECORDER.span("mapping.get_kf_ref_data"):
+            st = self.state
+            lo = max(0, self.num_kf - num_ref)
+            idx = slice(lo, self.num_kf)
+            logz = torch.einsum("rnm,rm->rn", st.Knm_full[idx], st.logzm[idx])
+            depth = torch.exp(logz).reshape((self.num_kf - lo,) + self.img_size)[:, None]
+            return (self.kf_ts[lo:self.num_kf], st.kf_rgb[idx].clone(),
+                    st.kf_pose[idx].clone(), st.kf_aff[idx].clone(), depth)
 
     def get_kf_viz_data(self):
         """What a viewer draws: per-keyframe images, poses, dense depths

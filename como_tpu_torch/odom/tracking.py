@@ -20,6 +20,7 @@ from como_tpu_torch.odom.frontend import tracking_kernels as tk
 from como_tpu_torch.ops import image as img_ops
 from como_tpu_torch.ops.coords import coord_grid_rc, fill_image
 from como_tpu_torch.ops.reduce import histogram_median
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 def build_reference(kf_rgb, kf_poses, depth, K, start_level: int, end_level: int,
@@ -87,15 +88,20 @@ def frame_stats(P_full, mask_full, T_curr_kf, T_w_kf, K, img_hw):
 def track_frame(levels, rgb, T_init, aff_init, T_w_kf, term, start_level: int,
                 end_level: int, img_hw, color: str = "gray"):
     """Whole per-frame tracking: gray -> pyramid -> coarse-to-fine IC solve
-    -> world pose + decision stats."""
-    img = img_ops.rgb_to_gray(rgb) if color == "gray" else rgb
-    C = img.shape[1]
-    img_pyr = img_ops.image_pyramid(img, start_level, end_level)
-    Tji, aff, _ = tk.track_pyramid(levels, img_pyr, T_init, aff_init, term)
-    finest = levels[-1]
-    npix = finest.vals.shape[0] // C
-    T_w_curr, stats = frame_stats(finest.P[:npix], finest.mask[:npix], Tji,
-                                  T_w_kf, finest.K, img_hw)
+    -> world pose + decision stats.  The IC iterations each level used (the
+    solve's own count, on the device) go to the device counter
+    "tracking.ic_iters_used", unread until asked."""
+    with RECORDER.span("tracking.track_frame"):
+        img = img_ops.rgb_to_gray(rgb) if color == "gray" else rgb
+        C = img.shape[1]
+        img_pyr = img_ops.image_pyramid(img, start_level, end_level)
+        Tji, aff, iters = tk.track_pyramid(levels, img_pyr, T_init, aff_init, term)
+        RECORDER.count_device("tracking.ic_iters_used", iters)
+        RECORDER.count("tracking.frames")
+        finest = levels[-1]
+        npix = finest.vals.shape[0] // C
+        T_w_curr, stats = frame_stats(finest.P[:npix], finest.mask[:npix], Tji,
+                                      T_w_kf, finest.K, img_hw)
     return Tji, aff, T_w_curr, stats
 
 
@@ -132,11 +138,12 @@ def _to_host_async(t: torch.Tensor):
 def host_value(pending: dict, key: str) -> np.ndarray:
     """The numpy value of pending[key], waiting for its prefetch if any."""
     pre = pending.get("_host", {}).get(key)
-    if pre is None:
-        return pending[key].detach().cpu().numpy()
-    host, ev = pre
-    if ev is not None:
-        ev.synchronize()
+    with RECORDER.span("sync.host_value"):
+        if pre is None:
+            return pending[key].detach().cpu().numpy()
+        host, ev = pre
+        if ev is not None:
+            ev.synchronize()
     return host.numpy()
 
 
@@ -185,29 +192,30 @@ class Tracking:
     def update_kf_reference(self, kf_data):
         """kf_data = (timestamps, rgb (B,3,H,W), pose (B,4,4), aff (B,2),
         depth (B,1,H,W)), latest last; tensors owned by the caller's copy."""
-        timestamps, rgb, pose, aff, depth = kf_data
-        new_ts = float(timestamps[-1])
-        rebased = new_ts > self.kf_received_ts and self.mapping_init
-        if rebased:
-            self.T_curr_kf, self.aff_curr_kf = rebase_to_new_kf(
-                self.T_w_kf, self.T_curr_kf, self.aff_w_kf, self.aff_curr_kf,
-                pose[-1], aff[-1])
-            self.num_one_way_since_kf = 0
-            self._T_prev = None
-            self._med_ema = None
-            self._prev_motion = None
-        elif not self.mapping_init:
-            self.mapping_init = True
-            self.last_kf_sent_ts = new_ts
+        with RECORDER.span("tracking.update_kf_reference"):
+            timestamps, rgb, pose, aff, depth = kf_data
+            new_ts = float(timestamps[-1])
+            rebased = new_ts > self.kf_received_ts and self.mapping_init
+            if rebased:
+                self.T_curr_kf, self.aff_curr_kf = rebase_to_new_kf(
+                    self.T_w_kf, self.T_curr_kf, self.aff_w_kf, self.aff_curr_kf,
+                    pose[-1], aff[-1])
+                self.num_one_way_since_kf = 0
+                self._T_prev = None
+                self._med_ema = None
+                self._prev_motion = None
+            elif not self.mapping_init:
+                self.mapping_init = True
+                self.last_kf_sent_ts = new_ts
 
-        self.levels = build_reference(
-            rgb, pose, depth, self.intrinsics, self.cfg.pyr.start_level,
-            self.cfg.pyr.end_level, self.cfg.pyr.depth_interp_mode, self.cfg.color)
-        self.kf_received_ts = new_ts
-        self.T_w_kf = pose[-1]
-        self.aff_w_kf = aff[-1]
-        if rebased or self._last_good is None:
-            self._last_good = (self.T_curr_kf, self.aff_curr_kf)
+            self.levels = build_reference(
+                rgb, pose, depth, self.intrinsics, self.cfg.pyr.start_level,
+                self.cfg.pyr.end_level, self.cfg.pyr.depth_interp_mode, self.cfg.color)
+            self.kf_received_ts = new_ts
+            self.T_w_kf = pose[-1]
+            self.aff_w_kf = aff[-1]
+            if rebased or self._last_good is None:
+                self._last_good = (self.T_curr_kf, self.aff_curr_kf)
 
     # -- per-frame, dispatch + decide ----------------------------------------
     @staticmethod
@@ -233,83 +241,86 @@ class Tracking:
         return T_init, self.T_curr_kf
 
     def dispatch_frame(self, timestamp: float, rgb: torch.Tensor):
-        T_init, T_before = self.init_pose()
-        Tji, aff, T_w_curr, stats = track_frame(
-            self.levels, rgb, T_init, self.aff_curr_kf, self.T_w_kf, self.term,
-            self.cfg.pyr.start_level, self.cfg.pyr.end_level,
-            tuple(self.img_size), self.cfg.color)
-        self._T_prev = T_before
-        self.T_curr_kf, self.aff_curr_kf = Tji, aff
-        return self.pending_entry(timestamp, rgb, Tji, aff, T_w_curr, stats)
+        with RECORDER.span("runtime.dispatch_frame", frame=timestamp):
+            T_init, T_before = self.init_pose()
+            Tji, aff, T_w_curr, stats = track_frame(
+                self.levels, rgb, T_init, self.aff_curr_kf, self.T_w_kf, self.term,
+                self.cfg.pyr.start_level, self.cfg.pyr.end_level,
+                tuple(self.img_size), self.cfg.color)
+            self._T_prev = T_before
+            self.T_curr_kf, self.aff_curr_kf = Tji, aff
+            return self.pending_entry(timestamp, rgb, Tji, aff, T_w_curr, stats)
 
     def decide(self, pending):
         """Keyframe / one-way decision from a dispatched frame's stats."""
-        stats = host_value(pending, "stats")
-        if not np.all(np.isfinite(stats)):
-            pending["lost"] = True
-            if (self._last_good is not None
-                    and bool(torch.isfinite(self._last_good[0]).all())):
-                self.T_curr_kf, self.aff_curr_kf = self._last_good
-            else:
-                self._reset_rel_vars()
-            self._T_prev = None
-            return None
-        self._last_good = (pending["Tji"], pending["aff"])
-        if pending.get("promoted_kf"):
-            self._prev_motion = None
-            return None
-        num_reproj = int(stats[0])
-        median_depth = float(stats[1])
-        kf_dist = float(stats[2])
-        rot_angle = float(stats[3])
-        num_kf_pixels = pending["num_kf_pixels"]
-        timestamp = pending["ts"]
+        with RECORDER.span("tracking.decide"):
+            stats = host_value(pending, "stats")
+            if not np.all(np.isfinite(stats)):
+                pending["lost"] = True
+                RECORDER.count("tracking.lost_frames")
+                if (self._last_good is not None
+                        and bool(torch.isfinite(self._last_good[0]).all())):
+                    self.T_curr_kf, self.aff_curr_kf = self._last_good
+                else:
+                    self._reset_rel_vars()
+                self._T_prev = None
+                return None
+            self._last_good = (pending["Tji"], pending["aff"])
+            if pending.get("promoted_kf"):
+                self._prev_motion = None
+                return None
+            num_reproj = int(stats[0])
+            median_depth = float(stats[1])
+            kf_dist = float(stats[2])
+            rot_angle = float(stats[3])
+            num_kf_pixels = pending["num_kf_pixels"]
+            timestamp = pending["ts"]
 
-        kcfg = self.cfg.keyframing
-        if kcfg.stat_ema > 0.0:
-            if self._med_ema is not None:
-                median_depth = (kcfg.stat_ema * self._med_ema
-                                + (1.0 - kcfg.stat_ema) * median_depth)
-            self._med_ema = median_depth
-        if kcfg.kf_rot_weight > 0.0:
-            rot_motion = kcfg.kf_rot_weight * median_depth * rot_angle
-            if kcfg.kf_rot_mode == "max":
-                kf_dist = max(kf_dist, rot_motion)
-            else:
-                kf_dist = kf_dist + rot_motion
-        anticipate = kcfg.kf_anticipate
-        if anticipate < 0:
-            anticipate = self.decision_lag if self.decision_lag <= 2 else 0
-        if anticipate > 0:
-            if self._prev_motion is not None:
-                rate = max(0.0, kf_dist - self._prev_motion)
-                self._prev_motion = kf_dist
-                kf_dist = kf_dist + anticipate * rate
-            else:
-                self._prev_motion = kf_dist
+            kcfg = self.cfg.keyframing
+            if kcfg.stat_ema > 0.0:
+                if self._med_ema is not None:
+                    median_depth = (kcfg.stat_ema * self._med_ema
+                                    + (1.0 - kcfg.stat_ema) * median_depth)
+                self._med_ema = median_depth
+            if kcfg.kf_rot_weight > 0.0:
+                rot_motion = kcfg.kf_rot_weight * median_depth * rot_angle
+                if kcfg.kf_rot_mode == "max":
+                    kf_dist = max(kf_dist, rot_motion)
+                else:
+                    kf_dist = kf_dist + rot_motion
+            anticipate = kcfg.kf_anticipate
+            if anticipate < 0:
+                anticipate = self.decision_lag if self.decision_lag <= 2 else 0
+            if anticipate > 0:
+                if self._prev_motion is not None:
+                    rate = max(0.0, kf_dist - self._prev_motion)
+                    self._prev_motion = kf_dist
+                    kf_dist = kf_dist + anticipate * rate
+                else:
+                    self._prev_motion = kf_dist
 
-        frame_kind = None
-        ref_ts = pending["kf_received_ts"]
-        if self.last_kf_sent_ts <= ref_ts:
-            if (kf_dist > kcfg.kf_depth_motion_ratio * median_depth
-                    or kcfg.kf_num_pixels_frac > num_reproj / num_kf_pixels):
-                frame_kind = "keyframe"
-                self.last_kf_sent_ts = timestamp
-        if frame_kind is None:
-            extra = 1 if self.last_kf_sent_ts > ref_ts else 0
-            thresh_scale = (1.0 + self.num_one_way_since_kf + extra) / (1.0 + kcfg.one_way_freq)
-            dist_thresh = kcfg.kf_depth_motion_ratio * median_depth
-            pixel_thresh = (1.0 - kcfg.kf_num_pixels_frac) * num_kf_pixels
-            num_empty = num_kf_pixels - num_reproj
-            if (kf_dist > thresh_scale * dist_thresh
-                    or num_empty > thresh_scale * pixel_thresh):
-                frame_kind = "one-way"
-                self.num_one_way_since_kf += 1
+            frame_kind = None
+            ref_ts = pending["kf_received_ts"]
+            if self.last_kf_sent_ts <= ref_ts:
+                if (kf_dist > kcfg.kf_depth_motion_ratio * median_depth
+                        or kcfg.kf_num_pixels_frac > num_reproj / num_kf_pixels):
+                    frame_kind = "keyframe"
+                    self.last_kf_sent_ts = timestamp
+            if frame_kind is None:
+                extra = 1 if self.last_kf_sent_ts > ref_ts else 0
+                thresh_scale = (1.0 + self.num_one_way_since_kf + extra) / (1.0 + kcfg.one_way_freq)
+                dist_thresh = kcfg.kf_depth_motion_ratio * median_depth
+                pixel_thresh = (1.0 - kcfg.kf_num_pixels_frac) * num_kf_pixels
+                num_empty = num_kf_pixels - num_reproj
+                if (kf_dist > thresh_scale * dist_thresh
+                        or num_empty > thresh_scale * pixel_thresh):
+                    frame_kind = "one-way"
+                    self.num_one_way_since_kf += 1
 
-        if frame_kind is None:
-            return None
-        return (frame_kind, pending["rgb"], pending["Tji"], pending["aff"],
-                pending["kf_received_ts"], timestamp)
+            if frame_kind is None:
+                return None
+            return (frame_kind, pending["rgb"], pending["Tji"], pending["aff"],
+                    pending["kf_received_ts"], timestamp)
 
     def handle_frame(self, timestamp: float, rgb: torch.Tensor):
         """Synchronous track-then-decide (the pipeline runtime's per-frame

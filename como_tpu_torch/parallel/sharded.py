@@ -44,6 +44,7 @@ import torch
 from como_tpu_torch.odom.backend import gn_step as gs
 from como_tpu_torch.odom.window import WindowDims, WindowState
 from como_tpu_torch.ops.reduce import reduce_in_order
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 def make_mesh(devices=None) -> list:
@@ -92,11 +93,13 @@ def make_sharded_gn_step(mesh, dims: WindowDims, sigmas, damping: float = 1e-6):
     by the mesh size (pad with invalid pairs)."""
 
     def step(state: WindowState, pairs_ref, pairs_tgt, pairs_valid, K_intr, damp=damping):
-        sc = gs._scaffold(state, K_intr, dims, sigmas.far_depth_ratio)
-        state = state.replace(P_lm=sc["P_lm_new"])
-        dn = gs._dense_points(state, sc, K_intr, dims)
-        photo, _ = photo_over_shards(mesh, state, sc, dn, pairs_ref, pairs_tgt, pairs_valid,
-                                     K_intr, dims, sigmas)
-        return gs._finish(state, sc, dn, photo, K_intr, dims, sigmas, damp)
+        with RECORDER.span("gn.step", shards=len(mesh)):
+            sc = gs._scaffold(state, K_intr, dims, sigmas.far_depth_ratio)
+            state = state.replace(P_lm=sc["P_lm_new"])
+            dn = gs._dense_points(state, sc, K_intr, dims)
+            photo, _ = photo_over_shards(mesh, state, sc, dn, pairs_ref, pairs_tgt,
+                                         pairs_valid, K_intr, dims, sigmas)
+            RECORDER.count("gn.steps")
+            return gs._finish(state, sc, dn, photo, K_intr, dims, sigmas, damp)
 
     return step

@@ -46,6 +46,7 @@ from como_tpu_torch.runtime.placement import (device_scope, resolve_device,
                                               tree_device_put)
 from como_tpu_torch.utils.io import save_traj
 from como_tpu_torch.utils.log import EventLog
+from como_tpu_torch.utils.profiling import RECORDER
 
 
 def fused_frame(levels, rgb, T_init, aff_init, T_w_kf, state, pairs_ref, pairs_tgt,
@@ -154,26 +155,27 @@ class ComoSeq:
 
     def _resolve_one(self):
         """Decide + record the oldest dispatched frame."""
-        m = self.mapping
-        p = self._pending.pop(0)
-        track_map = self.tracking.decide(p)
-        self.timestamps.append(p["ts"])
-        if p.get("lost"):
-            self.est_poses.append(self.est_poses[-1] if self.est_poses
-                                  else np.eye(4, dtype=np.float32))
-        else:
-            self.est_poses.append(p["T_w_curr"])
-        kf_inserted = False
-        if (track_map is not None and track_map[0] == "keyframe"
-                and self._kf_promote and self._pending):
-            track_map = self._promote_latest(track_map)
-        if track_map is not None:
-            with device_scope(self.map_dev):
-                track_map = tree_device_put(track_map, self.map_dev)
-                kf_inserted = m.handle_tracking_data(track_map)
-            self.log.emit("insert", frame_kind=track_map[0], ts=p["ts"],
-                          num_kf=m.num_kf, num_ow=m.num_ow)
-        return kf_inserted
+        with RECORDER.span("runtime.resolve"):
+            m = self.mapping
+            p = self._pending.pop(0)
+            track_map = self.tracking.decide(p)
+            self.timestamps.append(p["ts"])
+            if p.get("lost"):
+                self.est_poses.append(self.est_poses[-1] if self.est_poses
+                                      else np.eye(4, dtype=np.float32))
+            else:
+                self.est_poses.append(p["T_w_curr"])
+            kf_inserted = False
+            if (track_map is not None and track_map[0] == "keyframe"
+                    and self._kf_promote and self._pending):
+                track_map = self._promote_latest(track_map)
+            if track_map is not None:
+                with device_scope(self.map_dev):
+                    track_map = tree_device_put(track_map, self.map_dev)
+                    kf_inserted = m.handle_tracking_data(track_map)
+                self.log.emit("insert", frame_kind=track_map[0], ts=p["ts"],
+                              num_kf=m.num_kf, num_ow=m.num_ow)
+            return kf_inserted
 
     def _promote_latest(self, track_map):
         """Insert the NEWEST dispatched frame when a keyframe decision fires
@@ -204,43 +206,44 @@ class ComoSeq:
     def step(self, timestamp: float, rgb):
         """Process one frame; returns the latest world pose estimate (a
         device tensor) or None before initialization."""
-        m = self.mapping
-        if not m.is_init:
-            self._pending = []
-            self._stash = None
-            with device_scope(self.map_dev):
-                m.attempt_two_frame_init(timestamp, frame_tensor(rgb, self.map_dev))
-            if m.is_init:
-                pose = m.state.kf_pose[m.num_kf - 1].clone()
-                self.timestamps.append(timestamp)
-                self.est_poses.append(pose)
+        with RECORDER.span("runtime.step", frame=timestamp):
+            m = self.mapping
+            if not m.is_init:
+                self._pending = []
+                self._stash = None
+                with device_scope(self.map_dev):
+                    m.attempt_two_frame_init(timestamp, frame_tensor(rgb, self.map_dev))
+                if m.is_init:
+                    pose = m.state.kf_pose[m.num_kf - 1].clone()
+                    self.timestamps.append(timestamp)
+                    self.est_poses.append(pose)
+                    self._refresh_reference(timestamp)
+                    return pose
+                return None
+
+            rgb = frame_tensor(rgb, self.track_dev)
+            if self.frame_batch == 2 and not self.split_devices and not m.uses_mesh:
+                return self._step_batched(timestamp, rgb)
+
+            kf_inserted = False
+            while self._should_resolve():
+                kf_inserted |= self._resolve_one()
+            if kf_inserted or (timestamp - self._last_ref_ts > self.ref_period):
                 self._refresh_reference(timestamp)
-                return pose
-            return None
 
-        rgb = frame_tensor(rgb, self.track_dev)
-        if self.frame_batch == 2 and not self.split_devices and not m.uses_mesh:
-            return self._step_batched(timestamp, rgb)
-
-        kf_inserted = False
-        while self._should_resolve():
-            kf_inserted |= self._resolve_one()
-        if kf_inserted or (timestamp - self._last_ref_ts > self.ref_period):
-            self._refresh_reference(timestamp)
-
-        if self.split_devices or m.uses_mesh:
-            # two dispatches: tracking on its device, then the GN iteration
-            # on mapping's (the reference's cuda:0 / cuda:1 mode) or split
-            # over the mesh (mapping.mesh_devices)
-            with device_scope(self.track_dev):
+            if self.split_devices or m.uses_mesh:
+                # two dispatches: tracking on its device, then the GN iteration
+                # on mapping's (the reference's cuda:0 / cuda:1 mode) or split
+                # over the mesh (mapping.mesh_devices)
+                with device_scope(self.track_dev):
+                    self._pending.append(self.tracking.dispatch_frame(timestamp, rgb))
+                with device_scope(self.map_dev):
+                    m.maybe_iterate()
+            elif m.should_iterate():
+                self._pending.append(self._dispatch_fused(timestamp, rgb))
+            else:
                 self._pending.append(self.tracking.dispatch_frame(timestamp, rgb))
-            with device_scope(self.map_dev):
-                m.maybe_iterate()
-        elif m.should_iterate():
-            self._pending.append(self._dispatch_fused(timestamp, rgb))
-        else:
-            self._pending.append(self.tracking.dispatch_frame(timestamp, rgb))
-        return self._pending[-1]["T_w_curr"]
+            return self._pending[-1]["T_w_curr"]
 
     def _step_batched(self, timestamp, rgb):
         """frame_batch = 2: stash the first frame of each pair; on its
@@ -269,38 +272,40 @@ class ComoSeq:
     def _dispatch_pair(self, ts_a, rgb_a, ts_b, rgb_b):
         """Track two consecutive frames + (unless mapping converged) two
         mapping GN steps."""
-        t, m = self.tracking, self.mapping
-        do_gn = m.should_iterate()
-        motion = bool(t.use_motion_model and t._T_prev is not None)
-        T_init, T_before = t.init_pose()
-        out_a, out_b, new_state, gn_stats = fused_pair(
-            t.levels, rgb_a, rgb_b, T_init, t.aff_curr_kf, T_before, t.T_w_kf, do_gn,
-            m.state, *m._pairs, m.K, t.term, t.cfg.pyr.start_level,
-            t.cfg.pyr.end_level, tuple(t.img_size), m.dims, m.sigmas, m.damping,
-            t.cfg.color, motion)
-        Tji_a, aff_a, Tw_a, stats_a = out_a
-        Tji_b, aff_b, Tw_b, stats_b = out_b
-        t._T_prev = Tji_a  # the frame before the tracker's new current (= b)
-        t.T_curr_kf, t.aff_curr_kf = Tji_b, aff_b
-        m.state = new_state
-        for s in gn_stats:
-            m.note_iteration(s)
-        return (t.pending_entry(ts_a, rgb_a, Tji_a, aff_a, Tw_a, stats_a),
-                t.pending_entry(ts_b, rgb_b, Tji_b, aff_b, Tw_b, stats_b))
+        with RECORDER.span("runtime.dispatch_pair"):
+            t, m = self.tracking, self.mapping
+            do_gn = m.should_iterate()
+            motion = bool(t.use_motion_model and t._T_prev is not None)
+            T_init, T_before = t.init_pose()
+            out_a, out_b, new_state, gn_stats = fused_pair(
+                t.levels, rgb_a, rgb_b, T_init, t.aff_curr_kf, T_before, t.T_w_kf, do_gn,
+                m.state, *m._pairs, m.K, t.term, t.cfg.pyr.start_level,
+                t.cfg.pyr.end_level, tuple(t.img_size), m.dims, m.sigmas, m.damping,
+                t.cfg.color, motion)
+            Tji_a, aff_a, Tw_a, stats_a = out_a
+            Tji_b, aff_b, Tw_b, stats_b = out_b
+            t._T_prev = Tji_a  # the frame before the tracker's new current (= b)
+            t.T_curr_kf, t.aff_curr_kf = Tji_b, aff_b
+            m.state = new_state
+            for s in gn_stats:
+                m.note_iteration(s)
+            return (t.pending_entry(ts_a, rgb_a, Tji_a, aff_a, Tw_a, stats_a),
+                    t.pending_entry(ts_b, rgb_b, Tji_b, aff_b, Tw_b, stats_b))
 
     def _dispatch_fused(self, timestamp, rgb):
         """Track this frame + one mapping GN step."""
-        t, m = self.tracking, self.mapping
-        T_init, T_before = t.init_pose()
-        Tji, aff, T_w_curr, stats, new_state, gn_stats = fused_frame(
-            t.levels, rgb, T_init, t.aff_curr_kf, t.T_w_kf, m.state, *m._pairs, m.K,
-            t.term, t.cfg.pyr.start_level, t.cfg.pyr.end_level, tuple(t.img_size),
-            m.dims, m.sigmas, m.damping, t.cfg.color)
-        t._T_prev = T_before
-        t.T_curr_kf, t.aff_curr_kf = Tji, aff
-        m.state = new_state
-        m.note_iteration(gn_stats)
-        return t.pending_entry(timestamp, rgb, Tji, aff, T_w_curr, stats)
+        with RECORDER.span("runtime.dispatch_fused"):
+            t, m = self.tracking, self.mapping
+            T_init, T_before = t.init_pose()
+            Tji, aff, T_w_curr, stats, new_state, gn_stats = fused_frame(
+                t.levels, rgb, T_init, t.aff_curr_kf, t.T_w_kf, m.state, *m._pairs, m.K,
+                t.term, t.cfg.pyr.start_level, t.cfg.pyr.end_level, tuple(t.img_size),
+                m.dims, m.sigmas, m.damping, t.cfg.color)
+            t._T_prev = T_before
+            t.T_curr_kf, t.aff_curr_kf = Tji, aff
+            m.state = new_state
+            m.note_iteration(gn_stats)
+            return t.pending_entry(timestamp, rgb, Tji, aff, T_w_curr, stats)
 
     def finish(self):
         """Resolve the remaining dispatched frames (stream end)."""
@@ -319,14 +324,15 @@ class ComoSeq:
                 self._resolve_one()
 
     def _refresh_reference(self, timestamp):
-        m = self.mapping
-        with device_scope(self.map_dev):
-            ref = m.get_kf_ref_data(self.cfg.mapping.track_ref_num_keyframes)
-        with device_scope(self.track_dev):
-            self.tracking.update_kf_reference(tree_device_put(ref, self.track_dev))
-        self._last_ref_ts = timestamp
-        if self.viz_listener is not None:
-            self.viz_listener(m.get_kf_viz_data())
+        with RECORDER.span("runtime.refresh_reference"):
+            m = self.mapping
+            with device_scope(self.map_dev):
+                ref = m.get_kf_ref_data(self.cfg.mapping.track_ref_num_keyframes)
+            with device_scope(self.track_dev):
+                self.tracking.update_kf_reference(tree_device_put(ref, self.track_dev))
+            self._last_ref_ts = timestamp
+            if self.viz_listener is not None:
+                self.viz_listener(m.get_kf_viz_data())
 
     def run(self, dataset, max_frames: Optional[int] = None, verbose=False):
         n = len(dataset) if max_frames is None else min(len(dataset), max_frames)

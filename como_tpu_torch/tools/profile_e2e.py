@@ -1,17 +1,18 @@
 """Per-phase breakdown of the sequential engine (port of
-scripts/profile_e2e.py): wraps eleven of ComoSeq's internal phases with
-timers and reports count / total / median / p90 / max per phase over a
-full-size run, after --warmup frames, beside the frame wall times.
+scripts/profile_e2e.py): reads eleven of ComoSeq's internal phases from
+the spans the engine records (utils/profiling.py's RECORDER) and reports
+count / total / median / p90 / max per phase over a full-size run, after
+--warmup frames, beside the frame wall times.
 
     python -m como_tpu_torch.tools.profile_e2e --frames 120
 
-As in the JAX script, every timer reads host wall time.  In eager PyTorch
-that is the time the phase takes to launch its kernels plus any read-back
-to the host inside the call (a decision's stats, a keyframe insertion's
-counts), not the device time of its work, which may run later.  The text
-lines are the JAX script's; a last line holds the same numbers as one JSON
-object.  Runs on the card unless --device cpu is given; without a CUDA
-device it raises.
+As in the JAX script's timers, every span reads host wall time.  In eager
+PyTorch that is the time the phase takes to launch its kernels plus any
+read-back to the host inside the call (a decision's stats, a keyframe
+insertion's counts), not the device time of its work, which may run
+later.  The text lines are the JAX script's; a last line holds the same
+numbers as one JSON object.  Runs on the card unless --device cpu is
+given; without a CUDA device it raises.
 """
 
 from __future__ import annotations
@@ -19,15 +20,14 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from collections import defaultdict
 
 import numpy as np
 
 from como_tpu_torch.tools.common import (card_line, device_name, end_run, render_frames,
                                          tool_device)
 
-# (engine attribute or "" for the engine itself, method, label): the JAX
-# script's wraps, under its labels
+# (engine attribute or "" for the engine itself, method, label): the phases
+# the JAX script wraps, under its labels
 PHASES = (
     ("", "_dispatch_fused", "_dispatch_fused"),
     ("", "_dispatch_pair", "_dispatch_pair"),
@@ -43,35 +43,31 @@ PHASES = (
 )
 
 
-def wrap_phases(eng, acc: dict, recording: list) -> None:
-    """Replace each phase of PHASES on `eng` by a timed call that appends its
-    host seconds to acc[label] while recording[0] is true."""
-    for owner, name, label in PHASES:
-        obj = getattr(eng, owner) if owner else eng
-        f = getattr(obj, name)
-
-        def timed(*a, _f=f, _label=label, **k):
-            t0 = time.perf_counter()
-            r = _f(*a, **k)
-            if recording[0]:
-                acc[_label].append(time.perf_counter() - t0)
-            return r
-
-        setattr(obj, name, timed)
+# {label: the span that method records}
+SPANS = {"_dispatch_fused": "runtime.dispatch_fused", "_dispatch_pair": "runtime.dispatch_pair",
+         "_resolve_one": "runtime.resolve", "_refresh_reference": "runtime.refresh_reference",
+         "tracking.dispatch_frame": "runtime.dispatch_frame",
+         "tracking.decide": "tracking.decide",
+         "tracking.update_kf_ref": "tracking.update_kf_reference",
+         "mapping.insert": "mapping.handle_tracking_data",
+         "mapping.add_keyframe": "mapping.add_keyframe",
+         "mapping.add_one_way": "mapping.add_one_way_frame",
+         "mapping.get_kf_ref_data": "mapping.get_kf_ref_data"}
 
 
 def profile_run(cfg, ds, device, warmup: int, lag=None, prerender: bool = False):
-    """ComoSeq on `ds` with its phases timed from the step after frame
-    `warmup` on.  Returns ({label: [seconds]}, [frame wall seconds])."""
+    """ComoSeq on `ds`, its phases read from the spans it records from the
+    step after frame `warmup` on.  Returns ({label: [seconds]}, [frame wall
+    seconds])."""
     from como_tpu_torch.runtime.seq import ComoSeq
+    from como_tpu_torch.utils.profiling import RECORDER
 
     eng = ComoSeq(cfg, ds.intrinsics, tuple(cfg.img_size), device=device)
     eng.setup()
     if lag is not None:
         eng.decision_lag = lag
     frames = render_frames(ds, device) if prerender else None
-    acc, recording = defaultdict(list), [False]
-    wrap_phases(eng, acc, recording)
+    mark = None
     lat = []
     for i in range(len(ds)):
         ts, rgb = frames[i] if frames is not None else ds[i]
@@ -79,10 +75,15 @@ def profile_run(cfg, ds, device, warmup: int, lag=None, prerender: bool = False)
         eng.step(float(ts), rgb)
         dt = time.perf_counter() - s
         if i == warmup:
-            recording[0] = True
-        elif recording[0]:
+            mark = RECORDER.mark()
+        elif mark is not None:
             lat.append(dt)
     end_run(eng)
+    label_of = {span: label for label, span in SPANS.items()}
+    acc = {label: [] for _, _, label in PHASES}
+    for sp in list(RECORDER.spans):
+        if mark is not None and sp.t0 >= mark.t and sp.name in label_of:
+            acc[label_of[sp.name]].append((sp.t1 - sp.t0) * 1e-9)
     return acc, lat
 
 
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
           f"max {lat_ms.max():6.1f}")
     print(f"{'phase':<26}{'n':>5}{'total_ms':>10}{'median':>8}{'p90':>8}{'max':>8}")
     rows = {}
-    for k in sorted(acc, key=lambda k: -sum(acc[k])):
+    for k in sorted((k for k in acc if acc[k]), key=lambda k: -sum(acc[k])):
         v = np.array(acc[k]) * 1e3
         rows[k] = dict(n=len(v), total_ms=float(v.sum()), median_ms=float(np.median(v)),
                        p90_ms=float(np.percentile(v, 90)), max_ms=float(v.max()))

@@ -9,8 +9,10 @@ The flags are the JAX script's, with the same names and the same mapping
 onto the config, plus --device, so a sweep recipe written for the JAX
 script (scripts/r4_sweep*.sh) runs against the port by changing only the
 script path.  The text lines are the JAX script's; a last line holds the
-same numbers as one JSON object.  Runs on the card unless --device cpu is
-given; without a CUDA device it raises.
+same numbers as one JSON object.  --log writes the engine's events and,
+at the end, the spans of the run and their summary to one jsonl file.
+Runs on the card unless --device cpu is given; without a CUDA device it
+raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 
 from como_tpu_torch.tools.common import (card_line, device_name, engine_ate, render_frames,
                                          timed_frames, tool_device)
+from como_tpu_torch.utils.profiling import RECORDER, write_log
 
 WARM = 20        # frames 0..20 include the first calls; the clock restarts after
 
@@ -45,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per fused dispatch (cfg.frame_batch)")
     p.add_argument("--model", default=None,
                    help="msgpack UNet weights (with --prior unet)")
-    p.add_argument("--log", default=None, help="jsonl event-log path")
+    p.add_argument("--log", default=None,
+                   help="jsonl path of the events, spans and span summary")
     # keyframing sweep knobs (tracking.keyframing)
     p.add_argument("--kf_ratio", type=float, default=None,
                    help="kf_depth_motion_ratio")
@@ -146,8 +150,11 @@ def main(argv=None) -> int:
     print(f"device: {device_name(dev)}  frames: {len(ds)}  img: {img}", flush=True)
     frames = (render_frames(ds, dev) if args.prerender
               else (ds[i] for i in range(len(ds))))
+    mark = RECORDER.mark()
     steady, lat, warm = timed_frames(eng, frames, WARM)
     if hasattr(eng, "log"):
+        if args.log:
+            write_log(eng.log, mark)
         eng.log.close()
     fps = (len(ds) - WARM - 1) / steady
     lat = np.array(lat if lat else [0.0]) * 1000

@@ -162,21 +162,3 @@ def test_cli_realtime_paces_and_profile_traces(run, tmp_path):
               "--profile", str(tmp_path / "prof")])
     assert time.perf_counter() - t0 >= 3 / 30.0    # 4 frames at 30 fps
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-
-
-def test_stage_timer_matches_jax_package():
-    """utils/profiling.py::StageTimer is the JAX package's, line for line:
-    same averages and report on the same sequence of stages."""
-    from como_tpu.utils.profiling import StageTimer as JTimer
-    from como_tpu_torch.utils.profiling import StageTimer as TTimer
-
-    jt, tt = JTimer(ema=0.5), TTimer(ema=0.5)
-    for timer in (jt, tt):
-        for name in ("track", "solve", "track"):
-            with timer.stage(name):
-                pass
-    assert dict(tt.count) == dict(jt.count) == {"track": 2, "solve": 1}
-    assert set(tt.last) == set(jt.last) and all(v >= 0 for v in tt.avg.values())
-    assert tt.report().split("=")[0] == jt.report().split("=")[0] == "solve"
-    tt.avg.update(track=0.002, solve=0.001)
-    assert tt.report() == "solve=1.0ms  track=2.0ms"

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from como_tpu_torch.utils.profiling import RECORDER
+
 pytestmark = pytest.mark.cuda
 
 
@@ -58,10 +60,10 @@ def test_cross_covariance_kernel(cuda, N, M, offset):
     if offset:
         x_n, e_n, x_m, e_m = map(_offset_view, (x_n, e_n, x_m, e_m))
         assert x_n.data_ptr() % 16 == 4 and x_n.is_contiguous()
-    n0 = kernels_cuda.cross_covariance.launches
+    n0 = RECORDER.counter("kernels.cross_covariance")
     got = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.3)
     torch.cuda.synchronize()
-    assert kernels_cuda.cross_covariance.launches == n0 + (1 if N * M else 0)
+    assert RECORDER.counter("kernels.cross_covariance") == n0 + (1 if N * M else 0)
     assert got.shape == (N, M)
     want = kernels_cuda.cross_covariance_plain(x_n, e_n, x_m, e_m, 1.3)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
@@ -96,14 +98,14 @@ def test_launches_by_shape_records_the_shape(cuda):
 
     g = torch.Generator().manual_seed(3)
     args = (*_sites(g, 11, cuda), *_sites(g, 6, cuda), 1.0)
-    before = kernels_cuda.cross_covariance.launches_by_shape.get((11, 6), 0)
-    total = kernels_cuda.cross_covariance.launches
+    before = RECORDER.counter("kernels.cross_covariance", key=(11, 6))
+    total = RECORDER.counter("kernels.cross_covariance")
     kernels_cuda.cross_covariance(*args)
     kernels_cuda.cross_covariance(*args)
-    assert kernels_cuda.cross_covariance.launches_by_shape[(11, 6)] == before + 2
-    assert kernels_cuda.cross_covariance.launches == total + 2
-    assert sum(kernels_cuda.cross_covariance.launches_by_shape.values()) \
-        == kernels_cuda.cross_covariance.launches
+    assert RECORDER.counter("kernels.cross_covariance", key=(11, 6)) == before + 2
+    assert RECORDER.counter("kernels.cross_covariance") == total + 2
+    assert sum(RECORDER.by_key("kernels.cross_covariance").values()) \
+        == RECORDER.counter("kernels.cross_covariance")
 
 
 def test_sampler_kernel_vs_plain(cuda):
@@ -400,13 +402,14 @@ def test_cross_covariance_bwd_kernel(cuda, N, M):
     g = torch.Generator().manual_seed(N + M)
     args = (*_sites(g, N, cuda), *_sites(g, M, cuda), 1.3)
     grad = torch.randn((N, M), generator=g).to(cuda)
-    fwd, n0 = kernels_cuda.cross_covariance.launches, kernels_cuda.cross_covariance_bwd.launches
+    fwd = RECORDER.counter("kernels.cross_covariance")
+    n0 = RECORDER.counter("kernels.cross_covariance_bwd")
     got = kernels_cuda.cross_covariance_bwd(grad, *args)
     again = kernels_cuda.cross_covariance_bwd(grad, *args)
     torch.cuda.synchronize()
-    assert kernels_cuda.cross_covariance_bwd.launches == n0 + 2
-    assert kernels_cuda.cross_covariance_bwd.launches_by_shape[(N, M)] >= 2
-    assert kernels_cuda.cross_covariance.launches == fwd
+    assert RECORDER.counter("kernels.cross_covariance_bwd") == n0 + 2
+    assert RECORDER.counter("kernels.cross_covariance_bwd", key=(N, M)) >= 2
+    assert RECORDER.counter("kernels.cross_covariance") == fwd
     _bwd_close(got, kernels_cuda.cross_covariance_vjp_plain(grad, *args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -454,27 +457,27 @@ def test_cross_covariance_grad_through_the_kernel(cuda):
     g = torch.Generator().manual_seed(7)
     x_m, e_m = (t.requires_grad_(True) for t in _sites(g, 64, cuda))
     x_n, e_n = (t.requires_grad_(True) for t in _sites(g, 1024, cuda))
-    n_bwd = kernels_cuda.cross_covariance_bwd.launches
+    n_bwd = RECORDER.counter("kernels.cross_covariance_bwd")
     K_mm = kernels_cuda.cross_covariance(x_m, e_m, x_m, e_m, 1.0)
     K_nm = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.0)
     assert K_mm.grad_fn is not None and K_nm.grad_fn is not None
     G_mm = torch.randn((64, 64), generator=g).to(cuda).T       # strided
     G_nm = torch.randn((1024, 64), generator=g).to(cuda)
     got = torch.autograd.grad((K_mm * G_mm).sum() + (K_nm * G_nm).sum(), (x_m, e_m, x_n, e_n))
-    assert kernels_cuda.cross_covariance_bwd.launches == n_bwd + 2
+    assert RECORDER.counter("kernels.cross_covariance_bwd") == n_bwd + 2
     ins = [t.detach().requires_grad_(True) for t in (x_m, e_m, x_n, e_n)]
     L = ((kernels_cuda.cross_covariance_plain(ins[0], ins[1], ins[0], ins[1], 1.0) * G_mm).sum()
          + (kernels_cuda.cross_covariance_plain(ins[2], ins[3], ins[0], ins[1], 1.0)
             * G_nm).sum())
     _bwd_close(got, torch.autograd.grad(L, ins))
-    n_fwd = kernels_cuda.cross_covariance.launches
+    n_fwd = RECORDER.counter("kernels.cross_covariance")
     with torch.no_grad():
         K = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.0)
     K2 = kernels_cuda.cross_covariance(x_n.detach(), e_n.detach(), x_m.detach(),
                                        e_m.detach(), 1.0)
     assert K.grad_fn is None and K2.grad_fn is None
-    assert kernels_cuda.cross_covariance.launches == n_fwd + 2
-    assert kernels_cuda.cross_covariance_bwd.launches == n_bwd + 2
+    assert RECORDER.counter("kernels.cross_covariance") == n_fwd + 2
+    assert RECORDER.counter("kernels.cross_covariance_bwd") == n_bwd + 2
 
 
 def test_train_step_on_the_card(cuda):
@@ -485,12 +488,12 @@ def test_train_step_on_the_card(cuda):
     from como_tpu_torch.net.depthcov import DepthCovPrior
     from como_tpu_torch.train import train_depthcov
 
-    n_bwd = kernels_cuda.cross_covariance_bwd.launches
+    n_bwd = RECORDER.counter("kernels.cross_covariance_bwd")
     out = str(Path(__file__).resolve().parents[1] / "chiprun_out" / "test_train.msgpack")
     res = train_depthcov.main(["--steps", "4", "--val_every", "3", "--out", out])
     assert np.all(np.isfinite(res["losses"])) and np.all(np.isfinite(res["grad_norms"]))
     assert res["selected"] == "mse" and np.isfinite(res["best_score"])
-    assert kernels_cuda.cross_covariance_bwd.launches >= n_bwd + 2 * 4
+    assert RECORDER.counter("kernels.cross_covariance_bwd") >= n_bwd + 2 * 4
     prior = DepthCovPrior("unet", out, device=cuda)
     cov = prior.cov_params(torch.rand((1, 3, 192, 256), device=cuda))
     assert cov.shape == (3, 192, 256) and bool(torch.isfinite(cov).all())

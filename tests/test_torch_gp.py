@@ -23,6 +23,7 @@ from como_tpu_torch.gp import kernels as tkernels
 from como_tpu_torch.gp import kernels_cuda, sampler_cuda
 from como_tpu_torch.gp import predictor as tpred
 from como_tpu_torch.gp import sampler as tsampler
+from como_tpu_torch.utils.profiling import RECORDER
 import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 
@@ -52,10 +53,10 @@ def test_cross_covariance_plain_vs_xla(cc_inputs):
     got = kernels_cuda.cross_covariance_plain(*map(_t, cc_inputs), 1.3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
     # the dispatching wrapper takes the plain twin for CPU tensors
-    assert kernels_cuda.cross_covariance.launches == 0
+    assert RECORDER.counter("kernels.cross_covariance") == 0
     np.testing.assert_array_equal(tkernels.cross_covariance(*map(_t, cc_inputs), 1.3).numpy(),
                                   got.numpy())
-    assert kernels_cuda.cross_covariance.launches == 0
+    assert RECORDER.counter("kernels.cross_covariance") == 0
 
 
 def test_cross_covariance_plain_vs_pallas_interpret(cc_inputs):
@@ -126,8 +127,8 @@ def test_cross_covariance_reassociated_singular_is_nan():
 
 def test_launches_by_shape_empty_after_cpu_call(cc_inputs):
     tkernels.cross_covariance(*map(_t, cc_inputs), 1.0)
-    assert kernels_cuda.cross_covariance.launches == 0
-    assert kernels_cuda.cross_covariance.launches_by_shape == {}
+    assert RECORDER.counter("kernels.cross_covariance") == 0
+    assert RECORDER.by_key("kernels.cross_covariance") == {}
 
 
 def test_diag_and_interpolate(cc_inputs):
@@ -275,7 +276,7 @@ def test_downdate_plain_matches_jax_kernel_interpret():
     o, v, m = _t(obs), _t(var), _t(md)
     sc = torch.cat([_t(x_i), _t(e_i), torch.tensor([1.0 / 0.6, 1.0, 1.0])])
     sampler_cuda.downdate_step(_t(xnT), _t(enT), o, v, m, sc, _t(l_ni), 5)
-    assert sampler_cuda.downdate_step.launches == 0
+    assert RECORDER.counter("kernels.downdate") == 0
     np.testing.assert_allclose(o[5].numpy(), np.asarray(on), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(v.numpy(), np.asarray(vn), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(m.numpy(), np.asarray(mn), rtol=1e-5, atol=1e-6)

@@ -82,6 +82,7 @@ COUNTERPARTS = {
     "gn_step_donating": "jax.jit of _gn_step_impl with donated buffers; likewise",
     "init_unet": "net/unet.py::UNet, initialised from a seed",
     "track_frame_fused": "runtime/seq.py's fused frame program",
+    "StageTimer": "utils/profiling.py::RECORDER, the spans and counters of the engine path",
 }
 
 

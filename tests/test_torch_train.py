@@ -34,6 +34,7 @@ from como_tpu_torch.net import unet as tunet
 from como_tpu_torch.train import data as tdata
 from como_tpu_torch.train import loss as tloss
 from como_tpu_torch.train.optim import Trainer, cosine_decay
+from como_tpu_torch.utils.profiling import RECORDER
 import torch_testing  # noqa: F401  (one PyTorch thread per test worker)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -310,13 +311,13 @@ def test_cross_covariance_on_cpu_keeps_autograd_and_launches_nothing():
     rng = np.random.default_rng(3)
     x_n, e_n = (torch.from_numpy(a).requires_grad_(True) for a in _sites(rng, 9))
     x_m, e_m = (torch.from_numpy(a) for a in _sites(rng, 4))
-    n0 = kernels_cuda.cross_covariance_bwd.launches
+    n0 = RECORDER.counter("kernels.cross_covariance_bwd")
     K = kernels_cuda.cross_covariance(x_n, e_n, x_m, e_m, 1.0)
     assert K.grad_fn is not None
     K.sum().backward()
     assert e_n.grad is not None and bool(torch.isfinite(e_n.grad).all())
-    assert kernels_cuda.cross_covariance_bwd.launches == n0
-    assert kernels_cuda.cross_covariance_bwd.launches_by_shape == {}
+    assert RECORDER.counter("kernels.cross_covariance_bwd") == n0
+    assert RECORDER.by_key("kernels.cross_covariance_bwd") == {}
 
 
 # --- the checkpoint ----------------------------------------------------------------------
