@@ -10,6 +10,11 @@ Feeds (the mix's `feed` entry for the configuration's runtime):
                when a later `step` returns it.
 A frame's latency runs from the call to `step` that hands it over to the
 return of the call that gives its pose back to the caller.
+
+A feed calls `tick` of the traced run's device trace (benchmark/
+layers.py), which keys its frames session to a count: closed_loop passes
+the window frames handed over, before each hand-over; cli the window
+poses received, after each `step`, with the one frame in flight.
 """
 
 from __future__ import annotations
@@ -76,7 +81,10 @@ def warm_up(eng, stream, rule: dict) -> int:
         _host_pose(eng.step(ts, rgb))
         i += 1
         while any(q.qsize() for q in queues) and getattr(eng, "_error", None) is None:
-            time.sleep(0.001)
+            # each look takes the interpreter lock from the stage threads,
+            # whose launches need it; the mapping stage spends ~0.9 s on a
+            # bootstrap frame, so looking 50 times a second delays nothing
+            time.sleep(0.02)
         if n_init is None and eng.mapping.is_init:
             n_init = len(eng.timestamps)
     return i
@@ -112,8 +120,8 @@ def window_cli(eng, stream, start: int, seconds: float, device, tick=None,
     """The pipeline under the CLI's feed.  After the window closes, frames
     keep coming (as a camera's would) until every window frame's pose is
     back, or a later frame's pose came back first (the pose queue keeps only
-    the newest pose for the caller: that frame's pose never comes), or
-    `drain_s` has passed."""
+    the newest pose for the caller: that frame's pose never comes, and the
+    frame counts among `dropped`), or `drain_s` has passed."""
     synchronize(device)
     recv = {}                      # frame -> (seconds when its pose came back, finite)
     seen = [len(eng.timestamps)]
@@ -132,13 +140,13 @@ def window_cli(eng, stream, start: int, seconds: float, device, tick=None,
     i = start
     while True:
         ts, rgb = stream.frame(i)
-        if tick is not None:
-            tick(len(handed))
         ta = time.perf_counter()
         eng.step(ts, rgb)
         tb = time.perf_counter()
         handed[i] = ta
         poll(tb)
+        if tick is not None:
+            tick(len(recv) - len(before), lead=1)
         i += 1
         if tb >= deadline:
             break
@@ -153,11 +161,15 @@ def window_cli(eng, stream, start: int, seconds: float, device, tick=None,
         eng.step(ts, rgb)
         poll(time.perf_counter())
         i += 1
+    drained_s = time.perf_counter() - t1
     frames = sorted(handed)
     lat = [recv[f][0] - handed[f] if f in recv else math.inf for f in frames]
     ok = [f in recv and recv[f][1] for f in frames]
+    newest = max(recv, default=-1)
+    dropped = sum(1 for f in frames if f not in recv and f < newest)
     return dict(t0=t0, t1=t1, frames=frames, latency_s=lat, ok=ok,
-                received_in_window=received_in_window, next_frame=i)
+                received_in_window=received_in_window, next_frame=i, dropped=dropped,
+                drain_s=drained_s)
 
 
 FEEDS = {"closed_loop": window_closed_loop, "cli": window_cli}
@@ -186,6 +198,12 @@ def feed_of(config: dict, traffic: dict) -> str:
 
 
 def stop_engine(eng) -> None:
-    """End the engine's threads, if it has any (waits for them)."""
+    """End the engine's threads, if it has any (waits for them).  Frames
+    still waiting in its input queue are taken out first, as a camera that
+    stops leaves them untracked: nothing is measured or checked after the
+    window's wraps closed, and each would cost a tracked frame."""
+    rgb_q = getattr(eng, "rgb_q", None)
+    if rgb_q is not None:
+        rgb_q.pop_until_latest()
     if hasattr(eng, "shutdown"):
         eng.shutdown()

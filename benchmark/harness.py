@@ -117,14 +117,18 @@ def execute(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
         window = drive.FEEDS[drive.feed_of(config, traffic)](
             eng, stream, start, seconds, dev, tick=tracer.tick if tracer is not None else None)
         window["calls"] = dict(probe.counts)
+        t = time.perf_counter()
         drive.until_exercised(eng, stream, window["next_frame"], probe.exercised)
+        after = {"drain_s": window.get("drain_s", 0.0), "exercise_s": time.perf_counter() - t}
         if tracer is not None:
             tracer.close()
         probe.end_window()
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     finally:
+        t = time.perf_counter()
         drive.stop_engine(eng)
         probe.uninstall()
+    after["stop_s"] = time.perf_counter() - t
     captured = probe.captured
     parts["window_calls"] = window["calls"]
     del eng, probe
@@ -133,15 +137,19 @@ def execute(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    t = time.perf_counter()
     if trace:
         metrics, breakdown, busy = layers.per_layer(bench, cell["name"], window,
                                                     captured, tracer)
     else:
         metrics = {m["name"]: end_to_end(window, setup_s)[m["name"]]
                    for m in spec.metrics_of(bench, cell["name"], "end_to_end")}
+    after["read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     required = check.required_of(traffic)
     correct, checks = check.judge(captured, stream, config, cell["name"], dev, seed,
                                   required=required)
+    after["check_s"] = time.perf_counter() - t
     result = {"correct": bool(correct),
               "attempted": len(window["frames"]),
               "failed": int(sum(1 for ok in window["ok"] if not ok)),
@@ -150,6 +158,7 @@ def execute(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
         result["device"].update(busy)
         if breakdown:
             result["breakdown"] = breakdown
+        result["sessions"] = layers.sessions_of(captured, tracer)
     if control:
         result["control_correct"], result["control_checks"] = check.judge(
             captured, stream, config, cell["name"], dev, seed, required=required,
@@ -157,6 +166,12 @@ def execute(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
     lat_ms = 1e3 * np.asarray(window["latency_s"])
     parts["latency_ms_quartiles"] = [percentile(lat_ms, q) for q in (10, 25, 50, 75, 90)]
     result["setup_parts"] = parts
+    # after the window: the untimed drain and frames until an insertion and
+    # a GN step ran, the engine's stop, the readers, the check; the whole
+    # run from the process's start; window frames whose pose the pose
+    # queue dropped as stale (counted among `failed`)
+    result["after_parts"] = dict(after, total_s=time.perf_counter() - t_process,
+                                 dropped=window.get("dropped", 0))
     result["checks"] = checks
     text = "\n".join(f"check {k}: {v['value']!r} limit {v['limit']!r}"
                      for k, v in checks.items())

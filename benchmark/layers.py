@@ -3,11 +3,26 @@ and the per-layer metrics read from it and from the host spans.
 
 torch.profiler (CUDA activity only: the CUDA runtime's calls and the
 device's kernels, copies and sets, no CPU operator events) is on for
-  session "frames": window frames FRAMES_FROM .. FRAMES_FROM+FRAMES-1,
-      from the call to `step` that hands the first over to the call that
-      hands the one after the last;
+  session "frames": FRAMES whole tracked frames of the window, keyed by
+      the feed (benchmark/drive.py) to a count k that it passes to `tick`
+      with the frames already in flight when k is counted (`lead`); the
+      session starts once k reaches FRAMES_FROM and stops once it reaches
+      FRAMES + lead more:
+        closed_loop  k = window frames handed over, ticked before each
+                     hand-over, lead 0: from the call to `step` that hands
+                     frame FRAMES_FROM over to the call that hands frame
+                     FRAMES_FROM + FRAMES over;
+        cli          k = window poses received, ticked after each `step`,
+                     lead 1 (the tracking stage takes its next frame before
+                     the caller gets the pose back, so that frame began
+                     before the session): from the return of the
+                     FRAMES_FROM-th window pose to that of FRAMES + 1 more,
+                     so it holds FRAMES whole frames of the tracking stage
+                     and whatever mapping ran meanwhile (a pose that the
+                     pose queue dropped as stale is not counted);
   session "insert": the window's first keyframe insertion on the main
       thread (ComoSeq's), when the frames session is not running.
+Every session is started and stopped on the main thread.
 Each session's events are read in memory when it stops; nothing is
 written to disk.  A kernel belongs to the call in whose host span its
 launch (the runtime call with the same correlation id) started, on the
@@ -82,9 +97,16 @@ class DeviceTrace:
         self.stop()
         self.sessions.clear()
 
+    @staticmethod
+    def _on_main_thread(what: str) -> None:
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError(f"a profiler session is {what} on thread "
+                               f"{threading.current_thread().name!r}, not the main thread")
+
     def start(self, label: str) -> bool:
         from torch.profiler import ProfilerActivity, profile
 
+        self._on_main_thread("started")
         with self.lock:
             if self.active:
                 return False
@@ -96,6 +118,7 @@ class DeviceTrace:
         return True
 
     def stop(self) -> None:
+        self._on_main_thread("stopped")
         torch.cuda.synchronize(self.device)
         t1 = time.time_ns()
         self.prof.__exit__(None, None, None)
@@ -107,14 +130,16 @@ class DeviceTrace:
             self.active = False
 
     # -- called by the feed and the hooks --------------------------------------
-    def tick(self, k: int) -> None:
-        """Before the window's k-th frame is handed over: the frames
-        session starts at FRAMES_FROM (or the first frame after it at which
-        no other session runs) and covers FRAMES frames."""
+    def tick(self, k: int, lead: int = 0) -> None:
+        """The feed's count k (module doc): the frames session starts at
+        FRAMES_FROM (or the first count after it at which no other session
+        runs) and stops at the first count at least FRAMES + lead past its
+        start."""
         if self.stop_at is None and k >= FRAMES_FROM:
             if self.start("frames"):
-                self.stop_at = k + FRAMES
-        elif k == self.stop_at and self.label == "frames" and self.active:
+                self.stop_at = k + FRAMES + lead
+        elif self.stop_at is not None and k >= self.stop_at and self.label == "frames" \
+                and self.active:
             self.stop()
 
     def around_insert(self, call):
@@ -243,6 +268,27 @@ def breakdown(run: TracedRun) -> dict:
                 gaps[name] += (y - x) * 1e-9
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ops": [[k, v] for k, v in ops], "idle_gaps": [[k, v] for k, v in idle]}
+
+
+def sessions_of(captured, tracer) -> list:
+    """Each session of a traced run: its label and seconds, its kernels and
+    the threads that launched them, and the benchmark's "tracking" spans
+    wholly inside it (how many, their median ms) beside the median of all
+    the run's tracking spans: whether a frames session holds whole tracked
+    frames, and the kernels of every thread that launched."""
+    spans = [s for s in captured["spans"] if s[0] == "tracking"]
+    all_ms = sorted(1e-6 * (s[3] - s[2]) for s in spans)
+    out = []
+    for sess in (tracer.sessions if tracer is not None else []):
+        ms = sorted(1e-6 * (s[3] - s[2]) for s in spans
+                    if sess["t0"] <= s[2] and s[3] <= sess["t1"])
+        out.append({"label": sess["label"], "s": 1e-9 * (sess["t1"] - sess["t0"]),
+                    "kernels": len(sess["kernels"]),
+                    "threads": len({sess["launches"][k[3]][1] for k in sess["kernels"]}),
+                    "tracking_spans": len(ms),
+                    "tracking_ms_median": ms[len(ms) // 2] if ms else None,
+                    "run_tracking_ms_median": all_ms[len(all_ms) // 2] if all_ms else None})
+    return out
 
 
 def per_layer(bench, cell_name, window, captured, tracer):

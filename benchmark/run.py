@@ -31,6 +31,10 @@ CACHE = ROOT / ".bench_cache"
 CACHE_DIRS = {"TORCH_EXTENSIONS_DIR": "torch_extensions", "TRITON_CACHE_DIR": "triton",
               "PYTORCH_KERNEL_CACHE_PATH": "torch_kernels"}
 FORBIDDEN = ("jax", "jaxlib", "flax", "como_tpu")
+# read by the profiler's CUPTI layer when it starts: unset, a process whose
+# threads (the pipeline's stage threads) launch kernels lost every kernel of
+# some of them in later profiler sessions; set, it kept them all (PERF.md)
+PROFILER_ENV = {"TEARDOWN_CUPTI": "1"}
 
 
 def set_cache_dirs() -> None:
@@ -57,6 +61,7 @@ def parse(argv=None):
 def main(argv=None) -> int:
     args = parse(argv)
     set_cache_dirs()
+    os.environ.update(PROFILER_ENV)
     import torch
 
     torch.set_num_threads(1)        # one host thread of CPU kernels (PERF.md)
